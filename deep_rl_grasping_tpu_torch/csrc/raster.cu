@@ -1,17 +1,27 @@
-// Fused depth + segmentation ray-caster, one CUDA thread per pixel.
+// Fused depth + segmentation (+ shade) ray-caster, one CUDA thread per pixel.
 //
 // Replaces the Pallas TPU kernel deep_rl_grasping_tpu/ops/raster_pallas.py
 // (_raster_kernel :39, called from raster_depth_seg :215 /
-// render_batch_pallas :307), depth and seg only; the `with_shade` variant
-// for RGB-D observations is not ported yet. It computes what the port's
-// plain version deep_rl_grasping_tpu_torch/render/raycast.py `render`
-// computes (the JAX package's render/raycast.py:101): per env, pinhole rays
-// from per-env intrinsics; the nearest hit at t >= near among the support
-// plane (floor, or table with tray id 2 inside the tray), P spheres, the two
-// finger pads and the base box (slab test in the shared gripper frame), and
-// the four tray walls; depth = min(t, far), seg = the winner's id or -1.
-// Primitives are tested in the plain version's order with a strict `<`, so
-// ties go to the first primitive as argmin does.
+// render_batch_pallas :307), including its `with_shade` output
+// (raster_pallas.py:204-205). It computes what the port's plain version
+// deep_rl_grasping_tpu_torch/render/raycast.py `render_shade` computes (the
+// JAX package's render/raycast.py:101): per env, pinhole rays from per-env
+// intrinsics; the nearest hit at t >= near among the support plane (floor,
+// or table with tray id 2 inside the tray), P spheres, the two finger pads
+// and the base box (slab test in the shared gripper frame), and the four
+// tray walls; depth = min(t, far), seg = the winner's id or -1, and with
+// SHADE the winner's headlight Lambert term 0.35 + 0.65 * clip(-n.d/|d|, 0, 1)
+// (0 on a miss). Primitives are tested in the plain version's order with a
+// strict `<`, so ties go to the first primitive as argmin does.
+//
+// Shade design. The TPU kernel carries a shade for every candidate through
+// its reduction. Here the loop keeps only what the winner's normal needs:
+// the winning sphere's index (its normal needs its centre and radius, read
+// again after the loop), or -n.d itself for the plane (-d_z), a box (|d|
+// along the axis of its largest slab entry, in the box frame) and a wall
+// (the same in the world frame). One shade is computed after the loop. The
+// depth + seg instantiation (SHADE = false) is the kernel without shade,
+// unchanged.
 //
 // Design. The TPU kernel packs 64x64 pixels into (32, 128) lane tiles and
 // renders a few envs per grid step. Here grid = (pixel blocks, envs): each
@@ -44,26 +54,39 @@ __device__ __forceinline__ float safe_div_den(float x) { return fabsf(x) < 1e-9f
 
 // Slab test of a ray (origin o, direction d, both in the box frame) against
 // a box of half extents h centred at the origin. Returns t (inf if missed).
-__device__ __forceinline__ float slab(const float o[3], const float d[3], const float h[3]) {
-  float tmin = -INFINITY, tmax = INFINITY;
+// With FACE it also writes *nd, |d| along the axis of the largest slab entry
+// (the first such axis on ties, as argmax): -n.d of the entry face. Without
+// FACE the tracking is dead code and compiles away.
+template <bool FACE>
+__device__ __forceinline__ float slab(const float o[3], const float d[3], const float h[3],
+                                      float* nd) {
+  float tmin = -INFINITY, tmax = INFINITY, lo_best = -INFINITY;
+  int ax = 0;
   for (int i = 0; i < 3; ++i) {
     float ds = safe_div_den(d[i]);
     float ta = (-h[i] - o[i]) / ds;
     float tb = (h[i] - o[i]) / ds;
-    tmin = fmaxf(tmin, fminf(ta, tb));
+    const float lo = fminf(ta, tb);
+    if (FACE && (i == 0 || lo > lo_best)) {
+      lo_best = lo;
+      ax = i;
+    }
+    tmin = fmaxf(tmin, lo);
     tmax = fminf(tmax, fmaxf(ta, tb));
   }
+  if (FACE) *nd = fabsf(d[ax]);
   bool valid = (tmin < tmax) && (tmax > 0.f);
   float t = tmin > 0.f ? tmin : tmax;
   return valid ? t : INFINITY;
 }
 
+template <bool SHADE>
 __global__ void raster_kernel(RasterParams rp, const float* __restrict__ sph_c,
                               const float* __restrict__ sph_r, const int* __restrict__ sph_id,
                               const float* __restrict__ box_c, const float* __restrict__ box_R,
                               const float* __restrict__ cam_o, const float* __restrict__ cam_R,
                               const float* __restrict__ intr, float* __restrict__ depth,
-                              int* __restrict__ seg) {
+                              int* __restrict__ seg, float* __restrict__ shade) {
   const int e = blockIdx.y;
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
   const int HW = rp.H * rp.W;
@@ -79,6 +102,8 @@ __global__ void raster_kernel(RasterParams rp, const float* __restrict__ sph_c,
     const float near_ = rp.near_;
     float best = INFINITY;
     int best_id = -1;
+    int best_sph = -1;   // SHADE: winning sphere slot, or -1
+    float best_nd = 0.f;  // SHADE: -n.d of a winning plane, box or wall
 
     // support plane
     {
@@ -91,6 +116,7 @@ __global__ void raster_kernel(RasterParams rp, const float* __restrict__ sph_c,
       if (t > 0.f && t >= near_ && t < best) {
         best = t;
         best_id = id;
+        if (SHADE) best_nd = -d[2];
       }
     }
 
@@ -110,6 +136,7 @@ __global__ void raster_kernel(RasterParams rp, const float* __restrict__ sph_c,
       if (disc > 0.f && t > 0.f && r > 0.f && t >= near_ && t < best) {
         best = t;
         best_id = __ldg(sph_id + s);
+        if (SHADE) best_sph = i;
       }
     }
 
@@ -125,10 +152,15 @@ __global__ void raster_kernel(RasterParams rp, const float* __restrict__ sph_c,
         ol[j] = G[j] * rel[0] + G[3 + j] * rel[1] + G[6 + j] * rel[2];
         dl[j] = G[j] * d[0] + G[3 + j] * d[1] + G[6 + j] * d[2];
       }
-      const float t = slab(ol, dl, he[bi]);
+      float nd = 0.f;
+      const float t = slab<SHADE>(ol, dl, he[bi], &nd);
       if (t >= near_ && t < best) {
         best = t;
         best_id = rp.gripper_id;
+        if (SHADE) {
+          best_sph = -1;
+          best_nd = nd;
+        }
       }
     }
 
@@ -142,10 +174,15 @@ __global__ void raster_kernel(RasterParams rp, const float* __restrict__ sph_c,
                                {th + 0.04f, 0.02f, wh * 0.5f}, {th + 0.04f, 0.02f, wh * 0.5f}};
       for (int w = 0; w < 4; ++w) {
         const float ol[3] = {o[0] - wc[w][0], o[1] - wc[w][1], o[2] - wc[w][2]};
-        const float t = slab(ol, d, wh3[w]);
+        float nd = 0.f;
+        const float t = slab<SHADE>(ol, d, wh3[w], &nd);
         if (t >= near_ && t < best) {
           best = t;
           best_id = 2;
+          if (SHADE) {
+            best_sph = -1;
+            best_nd = nd;
+          }
         }
       }
     }
@@ -153,16 +190,29 @@ __global__ void raster_kernel(RasterParams rp, const float* __restrict__ sph_c,
     const bool hit = best < INFINITY;
     depth[e * HW + pix] = fminf(best, rp.far_);
     seg[e * HW + pix] = hit ? best_id : -1;
+    if (SHADE) {
+      if (best_sph >= 0) {  // n = (o + t d - c) / r, so -n.d = -(oc.d + t |d|^2) / r
+        const int s = e * rp.P + best_sph;
+        const float ocx = o[0] - __ldg(sph_c + s * 3);
+        const float ocy = o[1] - __ldg(sph_c + s * 3 + 1);
+        const float ocz = o[2] - __ldg(sph_c + s * 3 + 2);
+        best_nd = -(d[0] * ocx + d[1] * ocy + d[2] * ocz + best * a) /
+                  fmaxf(__ldg(sph_r + s), 1e-9f);
+      }
+      const float ndotl = fminf(fmaxf(best_nd / sqrtf(a), 0.f), 1.f);
+      shade[e * HW + pix] = hit ? 0.35f + 0.65f * ndotl : 0.f;
+    }
   }
 }
 
 // Host entry: fp = (plane_z, near, far, tray_half, wall_height),
-// ip = (B, P, H, W, has_tray, gripper_id), both host memory. Launches on
+// ip = (B, P, H, W, has_tray, gripper_id), both host memory. `shade` is null
+// for the depth + seg launch, else the (B, H, W) shade output. Launches on
 // `stream`; returns the launch's cudaError_t (0 on success).
 extern "C" int raster_run(const float* fp, const int* ip, const float* sph_c, const float* sph_r,
                           const int* sph_id, const float* box_c, const float* box_R,
                           const float* cam_o, const float* cam_R, const float* intr, float* depth,
-                          int* seg, void* stream) {
+                          int* seg, float* shade, void* stream) {
   RasterParams rp;
   rp.plane_z = fp[0];
   rp.near_ = fp[1];
@@ -178,7 +228,11 @@ extern "C" int raster_run(const float* fp, const int* ip, const float* sph_c, co
   if (rp.B <= 0) return 0;
   const int threads = 256;
   dim3 grid((rp.H * rp.W + threads - 1) / threads, rp.B);
-  raster_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(rp, sph_c, sph_r, sph_id, box_c,
-                                                           box_R, cam_o, cam_R, intr, depth, seg);
+  if (shade != nullptr)
+    raster_kernel<true><<<grid, threads, 0, (cudaStream_t)stream>>>(
+        rp, sph_c, sph_r, sph_id, box_c, box_R, cam_o, cam_R, intr, depth, seg, shade);
+  else
+    raster_kernel<false><<<grid, threads, 0, (cudaStream_t)stream>>>(
+        rp, sph_c, sph_r, sph_id, box_c, box_R, cam_o, cam_R, intr, depth, seg, nullptr);
   return (int)cudaGetLastError();
 }

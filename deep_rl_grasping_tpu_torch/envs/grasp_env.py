@@ -4,13 +4,15 @@ deep_rl_grasping_tpu/envs/grasp_env.py).
 `GraspEnv` holds the static task configuration and the per-env glue
 (action decode, servo targets, reward, time limit, auto-reset, observation
 assembly), all written over a leading env axis. `BatchedGraspEnv.step` is
-the kernel-routed step of grasp_env.py:582-620 for the full task: one
-solver call for `gripper_substeps` (ops/solver_cuda.py) and one depth+seg
-render (ops/raster_cuda.py). On CUDA tensors both go through the CUDA
-kernels; on CPU tensors through their plain versions.
+the kernel-routed step of grasp_env.py:582-642 for the full task: one
+solver call for `gripper_substeps` (ops/solver_cuda.py) and one render
+(ops/raster_cuda.py: depth + seg, or with the shade for RGB-D
+observations), then the curriculum window update. On CUDA tensors both go
+through the CUDA kernels; on CPU tensors through their plain versions.
+Training envs draw a randomized camera per episode (grasp_env.py:198-222).
 
-Not ported yet: the simplified task's three-call step (:592-606), RGB-D
-and encoder observations, table clearing, camera randomization (training).
+Not ported yet: the simplified task's three-call step (:592-606), encoder
+observations, table clearing.
 """
 
 from __future__ import annotations
@@ -64,9 +66,9 @@ class GraspEnv:
         self.simplified = bool(config["simplified"])
         self.depth_obs = bool(config.get("depth_observation", False))
         self.full_obs = bool(config.get("full_observation", False))
-        if self.simplified or not self.depth_obs or self.full_obs:
+        if self.simplified or not (self.depth_obs or self.full_obs):
             raise NotImplementedError(
-                "the port runs the full task with depth observations only")
+                "the port runs the full task with depth or RGB-D observations only")
         self.time_horizon = int(config["time_horizon"])
         self.actuator_spec = act.ActuatorSpec.from_config(config)
         self.reward_spec = rew.RewardSpec.from_config(config)
@@ -109,11 +111,52 @@ class GraspEnv:
         self.base_cam_R = transforms.quat_to_matrix(transforms.quat_normalize(q_rc))
         self.base_cam_t = torch.tensor(trans["translation"], dtype=torch.float32,
                                        device=self.device)
-        if sensor_cfg.get("randomize") and not evaluate:
-            raise NotImplementedError(
-                "camera randomization (training envs) is not ported yet; evaluation "
-                "uses the nominal camera")
+        # evaluation uses the nominal camera (sensor.py:22)
+        self.randomize = sensor_cfg.get("randomize") if not evaluate else None
+        self.rgb_scale = float(sensor_cfg.get("rgb_scale", 255.0))
         self.gripper_substeps = int(tpu.get("gripper_substeps", 48))
+
+    @property
+    def action_dim(self):
+        return self.actuator_spec.action_dim
+
+    @property
+    def obs_shape(self):
+        return (self.im_h, self.im_w, 5 if self.full_obs else 2)
+
+    # ------------------------------------------------------------------ camera
+
+    def camera_from_draws(self, dfc, mag, direction, angle, axis):
+        """Randomized camera (sensor.py:52-80) from its draws: dfc (B,4)
+        offsets of (fx, fy, cx, cy), mag (B,) translation length, direction
+        (B,3) and axis (B,3) in [-1,1]^3 (normalised here), angle (B,)."""
+        intr = self.base_intrinsics + dfc
+        unit = lambda v: v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
+                                         min=1e-12)
+        u = unit(axis)
+        half = 0.5 * angle[:, None]
+        Rd = transforms.quat_to_matrix(torch.cat([u * torch.sin(half), torch.cos(half)], -1))
+        # the rotation turns the whole extrinsic about the gripper origin
+        cam_R = torch.einsum("bij,jk->bik", Rd, self.base_cam_R)
+        cam_t = torch.einsum("bij,bj->bi", Rd, self.base_cam_t + mag[:, None] * unit(direction))
+        return cam_t, cam_R, intr
+
+    def randomized_camera(self, gen, num_envs):
+        """Per-episode camera of a training env, drawn with `gen`; the
+        nominal camera when randomization is off."""
+        B, dev = num_envs, self.device
+        if self.randomize is None:
+            return (self.base_cam_t.expand(B, 3).clone(), self.base_cam_R.expand(B, 3, 3).clone(),
+                    self.base_intrinsics.expand(B, 4).clone())
+        r = self.randomize
+        f, c = float(r["focal_length"]), float(r["optical_center"])
+        uni = lambda shape, lo, hi: lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+        dfc = torch.cat([uni((B, 2), -f, f), uni((B, 2), -c, c)], -1)
+        mag = uni((B,), 0.0, float(r["translation"]))
+        direction = uni((B, 3), -1.0, 1.0)
+        angle = uni((B,), 0.0, float(r["rotation"]))
+        axis = uni((B, 3), -1.0, 1.0)
+        return self.camera_from_draws(dfc, mag, direction, angle, axis)
 
     # ------------------------------------------------------------------ reset
 
@@ -125,27 +168,29 @@ class GraspEnv:
             cp["min_objects"], cp["max_objects"], cp["extent"], cp["robot_height"],
             settle_substeps=settle_substeps)
         dev = self.device
+        cam_t, cam_R, intrinsics = self.randomized_camera(gen, num_envs)
         return EnvState(
             sim=sim,
             episode_step=torch.zeros(num_envs, dtype=torch.int32, device=dev),
             episode_return=torch.zeros(num_envs, device=dev),
             status=torch.full((num_envs,), rew.RUNNING, dtype=torch.int32, device=dev),
             reward_state=rew.RewardState.init(cp["robot_height"], num_envs, dev),
-            cam_t=self.base_cam_t.expand(num_envs, 3).clone(),
-            cam_R=self.base_cam_R.expand(num_envs, 3, 3).clone(),
-            intrinsics=self.base_intrinsics.expand(num_envs, 4).clone(),
+            cam_t=cam_t, cam_R=cam_R, intrinsics=intrinsics,
             lift_dist=torch.full((num_envs,), cp["lift_dist"], device=dev),
         )
 
     # ------------------------------------------------------------------ obs
 
-    def assemble_obs(self, state: EnvState, depth):
-        """Depth observation (robot.py:183-205): channel 0 depth, channel 1
-        zeros with the actuator width at pixel [0, 0]. (B, H, W, 2)."""
+    def assemble_obs(self, state: EnvState, depth, rgb=None):
+        """Image observation (robot.py:183-205): depth, then a channel of
+        zeros with the actuator width at pixel [0, 0]; RGB-D observations
+        put rgb * rgb_scale first. (B, H, W, 2) or (B, H, W, 5)."""
         pad = torch.zeros_like(depth)
         width = physics.gripper_width(state.sim.gripper.q)
         a_obs = act.actuator_obs(self.actuator_spec, width, state.sim.gripper.q[:, 2])
         pad[:, 0, 0] = a_obs[:, 0]
+        if self.full_obs:
+            return torch.cat([rgb * self.rgb_scale, depth[..., None], pad[..., None]], -1)
         return torch.stack([depth, pad], -1)
 
     # ------------------------------------------------------------------ step
@@ -214,35 +259,49 @@ class GraspEnv:
 
 
 class BatchedGraspEnv:
-    """A batch of envs with the kernel-routed step (grasp_env.py:582-620)."""
+    """A batch of envs with the kernel-routed step (grasp_env.py:582-642)
+    and the shared curriculum window. `generator` draws the auto-reset
+    scenes and cameras."""
 
     def __init__(self, env: GraspEnv, num_envs: int, generator: torch.Generator):
         self.env = env
         self.num_envs = num_envs
         self.gen = generator
 
-    def reset(self, lam):
+    def init_curriculum(self):
+        return curr.CurriculumState.init(self.env.curriculum_spec, self.env.evaluate,
+                                         self.env.device)
+
+    def reset(self, curriculum: curr.CurriculumState):
         env = self.env
-        states = env.reset_env(self.gen, self.num_envs, lam, settle_substeps=48)
+        states = env.reset_env(self.gen, self.num_envs, float(curriculum.lam),
+                               settle_substeps=48)
         return states, self.observe_batch(states)
 
     def observe_batch(self, states: EnvState):
         env = self.env
         cam_pos, cam_R = raycast.camera_pose_from_gripper(
             states.sim.gripper.q, states.cam_t, states.cam_R)
-        depth, _seg = raster_cuda.render_batch(
+        out = raster_cuda.render_batch(
             states.sim, env.sim_params, cam_pos, cam_R, states.intrinsics,
-            H=env.im_h, W=env.im_w, near=env.near, far=env.far)
-        return env.assemble_obs(states, depth)
+            H=env.im_h, W=env.im_w, near=env.near, far=env.far, with_rgb=env.full_obs)
+        if env.full_obs:
+            rgb, depth, _seg = out
+            return env.assemble_obs(states, depth, rgb)
+        return env.assemble_obs(states, out[0])
 
-    def step(self, states: EnvState, actions, lam):
-        """One control step for every env. Returns (states, obs, rewards,
-        dones, infos) with VecEnv semantics: a finished env's obs already
-        belongs to its next episode."""
+    def step(self, states: EnvState, actions, curriculum: curr.CurriculumState):
+        """One control step for every env at the curriculum's lambda.
+        Returns (states, obs, rewards, dones, infos, curriculum) with VecEnv
+        semantics (a finished env's obs already belongs to its next
+        episode) and the curriculum window updated with the finished
+        episodes (single device: no all-gather)."""
         env = self.env
         sim, _cmd = env._apply_action(states.sim, actions)
         sim = solver_cuda.run_batched_sim(sim, env.sim_params, env.gripper_substeps)
         stepped, reward, status = env._full_outcome_core(states, sim)
         next_states, rewards, dones, infos = env._finalize_step(
-            self.gen, states, stepped, reward, status, lam)
-        return next_states, self.observe_batch(next_states), rewards, dones, infos
+            self.gen, states, stepped, reward, status, float(curriculum.lam))
+        curriculum = curr.update(env.curriculum_spec, curriculum, dones,
+                                 dones & infos["is_success"])
+        return next_states, self.observe_batch(next_states), rewards, dones, infos, curriculum

@@ -1,9 +1,10 @@
-"""Policy networks as torch `nn.Module`s (port of the parts of
-deep_rl_grasping_tpu/models/networks.py that SAC acting uses).
+"""Policy and value networks as torch `nn.Module`s (port of the SAC parts
+of deep_rl_grasping_tpu/models/networks.py: `SACActor`, the twin-Q
+`SACCritic` :112-126 and `make_torso` :81).
 
 Convolutions and the trunk's dense layers compute in bfloat16 with float32
-parameters, as the JAX package does (networks.py:30-31); the two SAC heads
-stay float32. The public boundary keeps the JAX layout: observations are
+parameters, as the JAX package does (networks.py:30-31); the heads stay
+float32. The public boundary keeps the JAX layout: observations are
 NHWC, (B, H, W, C). Internally the convolutions run NCHW and the flatten
 before the 512-wide dense layer is in NCHW order; utils/policy_io.py
 permutes that layer's rows when it loads Flax (NHWC-flatten) weights.
@@ -82,6 +83,16 @@ class MLP(nn.Module):
         return x.to(torch.float32)
 
 
+def make_torso(obs_shape, layers, image_obs):
+    """Feature extractor as the JAX package selects it (networks.py:81): the
+    augmented Nature CNN for image observations, an MLP otherwise.
+    Returns (module, number of output features)."""
+    if image_obs:
+        torso = AugmentedNatureCNN(tuple(obs_shape), num_direct_features=1)
+        return torso, torso.out_features
+    return MLP(obs_shape[0], layers), layers[-1]
+
+
 class SACActor(nn.Module):
     """Squashed-Gaussian policy head; returns (mean, log_std) pre-tanh."""
 
@@ -89,12 +100,8 @@ class SACActor(nn.Module):
         super().__init__()
         self.obs_shape = tuple(obs_shape)
         self.image_obs = image_obs
-        if image_obs:
-            self.torso = AugmentedNatureCNN(self.obs_shape, num_direct_features=1)
-            self.mlp = MLP(self.torso.out_features, layers)
-        else:
-            self.torso = MLP(self.obs_shape[0], layers)
-            self.mlp = None
+        self.torso, n_feat = make_torso(self.obs_shape, layers, image_obs)
+        self.mlp = MLP(n_feat, layers) if image_obs else None
         self.mean = nn.Linear(layers[-1], action_dim)
         self.log_std = nn.Linear(layers[-1], action_dim)
 
@@ -105,3 +112,20 @@ class SACActor(nn.Module):
         mean = self.mean(h)
         log_std = torch.clamp(self.log_std(h), LOG_STD_MIN, LOG_STD_MAX)
         return mean, log_std
+
+
+class SACCritic(nn.Module):
+    """Twin Q network: one torso, then two [layers] MLP + scalar heads on
+    (features, action). Returns (B, 2)."""
+
+    def __init__(self, obs_shape, action_dim, layers=(64, 64), image_obs=False):
+        super().__init__()
+        self.obs_shape = tuple(obs_shape)
+        self.image_obs = image_obs
+        self.torso, n_feat = make_torso(self.obs_shape, layers, image_obs)
+        self.mlps = nn.ModuleList(MLP(n_feat + action_dim, layers) for _ in range(2))
+        self.heads = nn.ModuleList(nn.Linear(layers[-1], 1) for _ in range(2))
+
+    def forward(self, obs, action):
+        x = torch.cat([self.torso(obs), action.to(torch.float32)], -1)
+        return torch.cat([head(mlp(x)) for mlp, head in zip(self.mlps, self.heads)], -1)

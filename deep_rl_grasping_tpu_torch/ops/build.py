@@ -36,7 +36,7 @@ _SIGNATURES = {
     # name: (argtypes, restype); pointers and the stream as c_void_p
     "solver_run": ([_P] * 24, _I),
     "solver_limits": ([_P], _I),
-    "raster_run": ([_P] * 13, _I),
+    "raster_run": ([_P] * 14, _I),
 }
 
 

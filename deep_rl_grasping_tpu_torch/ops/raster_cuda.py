@@ -1,14 +1,18 @@
-"""Depth + segmentation ray-caster: CUDA kernel wrapper and its plain version.
+"""Depth + segmentation (+ shade) ray-caster: CUDA kernel wrapper and its
+plain version.
 
 Replaces deep_rl_grasping_tpu/ops/raster_pallas.py (the Pallas TPU kernel
 `_raster_kernel` :39, driven by `raster_depth_seg` :215 /
-`render_batch_pallas` :307), depth and seg only. The kernel is
-`csrc/raster.cu` (one thread per pixel, a block row per env); its plain
-PyTorch version is `render.raycast.render`. On the H100 it is bound by
-float32 operations (~25 per pixel-sphere pair), not by bytes.
+`render_batch_pallas` :307), with its `with_shade` output
+(raster_pallas.py:204-205). The kernel is `csrc/raster.cu` (one thread per
+pixel, a block row per env); its plain PyTorch version is
+`render.raycast.render_shade`. On the H100 it is bound by float32
+operations (~25 per pixel-sphere pair), not by bytes.
 
 `render_batch` takes the plain version only for a state whose tensors lie on
-the CPU. For CUDA tensors it launches the kernel or raises.
+the CPU. For CUDA tensors it launches the kernel or raises. RGB is
+assembled outside the kernel from its shade and seg through the id -> color
+table, as the JAX package does (raster_pallas.py:346-366).
 """
 
 from __future__ import annotations
@@ -24,9 +28,11 @@ from deep_rl_grasping_tpu_torch.sim.types import SimParams, SimState
 
 def raster_depth_seg(sph_centers, sph_radii, sph_ids, box_centers, box_R,
                      cam_origin, cam_R, intrinsics, *, H, W, has_tray, plane_z,
-                     near, far, tray_half, wall_height, gripper_id):
+                     near, far, tray_half, wall_height, gripper_id, with_shade=False):
     """Launch the raster kernel on CUDA tensors (the inputs of
-    raster_pallas.raster_depth_seg). Returns depth (B,H,W) f32, seg (B,H,W) i32."""
+    raster_pallas.raster_depth_seg). Returns depth (B,H,W) f32, seg (B,H,W)
+    i32 and, with `with_shade`, the shade (B,H,W) f32. Launches with shade
+    count in `raster_depth_seg.shade_launches`, the others in `.launches`."""
     dev = sph_centers.device
     if dev.type != "cuda":
         raise ValueError("raster_depth_seg launches the CUDA kernel; pass CUDA tensors")
@@ -45,6 +51,7 @@ def raster_depth_seg(sph_centers, sph_radii, sph_ids, box_centers, box_R,
     lib = build.library()
     depth = torch.empty((B, H, W), dtype=torch.float32, device=dev)
     seg = torch.empty((B, H, W), dtype=torch.int32, device=dev)
+    shade = torch.empty((B, H, W), dtype=torch.float32, device=dev) if with_shade else None
     fp = np.asarray([plane_z, near, far, tray_half, wall_height], np.float32)
     ip = np.asarray([B, P, H, W, int(bool(has_tray)), int(gripper_id)], np.int32)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -53,13 +60,18 @@ def raster_depth_seg(sph_centers, sph_radii, sph_ids, box_centers, box_R,
             fp.ctypes.data, ip.ctypes.data, sph_centers.data_ptr(), sph_radii.data_ptr(),
             sph_ids.data_ptr(), box_centers.data_ptr(), box_R.data_ptr(),
             cam_origin.data_ptr(), cam_R.data_ptr(), intrinsics.data_ptr(),
-            depth.data_ptr(), seg.data_ptr(), stream)
+            depth.data_ptr(), seg.data_ptr(), None if shade is None else shade.data_ptr(),
+            stream)
     build.check(err, "raster_kernel")
+    if with_shade:
+        raster_depth_seg.shade_launches += 1
+        return depth, seg, shade
     raster_depth_seg.launches += 1
     return depth, seg
 
 
 raster_depth_seg.launches = 0
+raster_depth_seg.shade_launches = 0
 
 
 def kernel_inputs(states: SimState, params: SimParams, cam_pos, cam_R, intrinsics,
@@ -87,13 +99,19 @@ def kernel_inputs(states: SimState, params: SimParams, cam_pos, cam_R, intrinsic
 
 
 def render_batch(states: SimState, params: SimParams, cam_pos, cam_R, intrinsics,
-                 H=64, W=64, near=0.02, far=2.0):
-    """Batched depth+seg render: the plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors."""
+                 H=64, W=64, near=0.02, far=2.0, with_rgb=False):
+    """Batched render: (depth, seg), or (rgb, depth, seg) with `with_rgb`.
+    The plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
     dev = cam_pos.device
     if dev.type == "cpu":
-        return raycast.render(states, params, cam_pos, cam_R, intrinsics, H, W, near, far)
+        return raycast.render(states, params, cam_pos, cam_R, intrinsics, H, W, near, far,
+                              with_rgb=with_rgb)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     args, kw = kernel_inputs(states, params, cam_pos, cam_R, intrinsics, H, W, near, far)
-    return raster_depth_seg(*args, **kw)
+    out = raster_depth_seg(*args, **kw, with_shade=with_rgb)
+    if not with_rgb:
+        return out
+    depth, seg, shade = out
+    rgb = raycast.shade_to_rgb(seg, shade, raycast.color_lut(params, states.objects.obj_type))
+    return rgb, depth, seg

@@ -1,11 +1,12 @@
-"""YAML configuration reading without PyYAML.
+"""YAML configuration reading and writing without PyYAML.
 
 `load_yaml` reads the YAML subset the repo's configs use: block mappings,
 block sequences, flow lists and maps (nested), plain and quoted scalars,
 and comments. Scalars resolve as PyYAML's `safe_load` resolves them
 (YAML 1.1 booleans such as `True`/`yes`, `null`/`~`, ints, and floats that
 need a dot, like `1.0e-4`, `0.` or `100.`), so a config reads the same
-through either reader.
+through either reader. `save_yaml` writes block mappings that both readers
+read back to the same tree.
 """
 
 from __future__ import annotations
@@ -219,3 +220,65 @@ def load_yaml(file_path):
     with open(os.path.expanduser(file_path), "r") as f:
         return parse_yaml(f.read())
 
+
+
+_PLAIN_KEY = re.compile(r"^[A-Za-z_][A-Za-z0-9_]*$")
+
+
+def _emit_scalar(v) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if v != v:
+            return ".nan"
+        if v in (float("inf"), float("-inf")):
+            return ".inf" if v > 0 else "-.inf"
+        r = repr(v)
+        mant, _, exp = r.partition("e")
+        if "." not in mant:  # YAML 1.1 floats need a dot
+            mant += ".0"
+        return mant + (f"e{'+' if not exp.startswith('-') else ''}{exp.lstrip('+')}" if exp
+                       else "")
+    if isinstance(v, str):
+        return "'" + v.replace("'", "''") + "'"
+    raise TypeError(f"cannot write {type(v).__name__} to YAML")
+
+
+def _emit_key(k) -> str:
+    k = str(k)
+    return k if _PLAIN_KEY.match(k) and _scalar(k) == k else _emit_scalar(k)
+
+
+def _emit_flow(v) -> str:
+    if isinstance(v, dict):
+        return "{" + ", ".join(f"{_emit_key(k)}: {_emit_flow(x)}" for k, x in v.items()) + "}"
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_emit_flow(x) for x in v) + "]"
+    return _emit_scalar(v)
+
+
+def _emit_block(data, indent, out):
+    pad = " " * indent
+    for k, v in data.items():
+        if isinstance(v, dict) and v:
+            out.append(f"{pad}{_emit_key(k)}:")
+            _emit_block(v, indent + 2, out)
+        else:
+            out.append(f"{pad}{_emit_key(k)}: {_emit_flow(v)}")
+
+
+def dump_yaml(data: dict) -> str:
+    out = []
+    _emit_block(data, 0, out)
+    return "\n".join(out) + "\n"
+
+
+def save_yaml(data: dict, file_path):
+    """Write a config tree (nested dicts; lists, strings, numbers, booleans,
+    None) as YAML."""
+    with open(os.path.expanduser(file_path), "w") as f:
+        f.write(dump_yaml(data))

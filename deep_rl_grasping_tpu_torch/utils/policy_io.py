@@ -11,8 +11,10 @@ package's utils/policy_io.py, arrays keyed by Flax key path such as
   NHWC flatten in Flax and an NCHW flatten in the port, so its input rows
   are reordered from (h, w, c) to (c, h, w).
 
-`actor_state_dict` takes a plain nested dict of numpy arrays in the Flax
-layout too, which is how the tests hand it freshly initialised Flax params.
+`actor_state_dict` and `critic_state_dict` take plain nested dicts of numpy
+arrays in the Flax layout too; `load_sac_state` carries a whole Flax
+`SACState` (actor, critic, target critic, log_alpha) into the port's SAC,
+which is how the tests hand it freshly initialised Flax params.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from deep_rl_grasping_tpu_torch.algos.normalize import NormalizerState, RunningMeanStd
-from deep_rl_grasping_tpu_torch.models.networks import SACActor
+from deep_rl_grasping_tpu_torch.models.networks import SACActor, SACCritic
 
 _KEY = re.compile(r"\['([^']+)'\]")
 
@@ -52,38 +54,81 @@ def _mlp(tree, prefix, out):
         i += 1
 
 
+def _torso(params, torso, prefix, out):
+    """Flax torso params -> `prefix` entries of a torch state_dict; returns
+    the index of the first Flax `MLP_<i>` after the torso."""
+    if not hasattr(torso, "cnn"):
+        _mlp(params["MLP_0"], prefix, out)
+        return 1
+    cnn = params["AugmentedNatureCNN_0"]["NatureCNN_0"]
+    for i in range(len(torso.cnn.convs)):
+        k = np.asarray(cnn[f"Conv_{i}"]["kernel"], np.float32)  # HWIO
+        out[f"{prefix}cnn.convs.{i}.weight"] = k.transpose(3, 2, 0, 1)
+        out[f"{prefix}cnn.convs.{i}.bias"] = np.asarray(cnn[f"Conv_{i}"]["bias"], np.float32)
+    c, h, w = torso.cnn.out_chw
+    k = np.asarray(cnn["Dense_0"]["kernel"], np.float32)  # (h*w*c, F), NHWC rows
+    k = k.reshape(h, w, c, -1).transpose(2, 0, 1, 3).reshape(c * h * w, -1)
+    out[f"{prefix}cnn.dense.weight"] = k.T
+    out[f"{prefix}cnn.dense.bias"] = np.asarray(cnn["Dense_0"]["bias"], np.float32)
+    return 0
+
+
+def _tensors(out):
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+
+
 def actor_state_dict(params: dict, actor: SACActor) -> dict:
     """Flax SACActor params (nested dict of arrays) -> torch state_dict."""
     out = {}
-    if actor.image_obs:
-        cnn = params["AugmentedNatureCNN_0"]["NatureCNN_0"]
-        for i in range(len(actor.torso.cnn.convs)):
-            k = np.asarray(cnn[f"Conv_{i}"]["kernel"], np.float32)  # HWIO
-            out[f"torso.cnn.convs.{i}.weight"] = k.transpose(3, 2, 0, 1)
-            out[f"torso.cnn.convs.{i}.bias"] = np.asarray(cnn[f"Conv_{i}"]["bias"], np.float32)
-        c, h, w = actor.torso.cnn.out_chw
-        k = np.asarray(cnn["Dense_0"]["kernel"], np.float32)  # (h*w*c, F), NHWC rows
-        k = k.reshape(h, w, c, -1).transpose(2, 0, 1, 3).reshape(c * h * w, -1)
-        out["torso.cnn.dense.weight"] = k.T
-        out["torso.cnn.dense.bias"] = np.asarray(cnn["Dense_0"]["bias"], np.float32)
-        _mlp(params["MLP_0"], "mlp.", out)
-    else:
-        _mlp(params["MLP_0"], "torso.", out)
+    i = _torso(params, actor.torso, "torso.", out)
+    if actor.mlp is not None:
+        _mlp(params[f"MLP_{i}"], "mlp.", out)
     _dense(params["Dense_0"], "mean.", out)
     _dense(params["Dense_1"], "log_std.", out)
-    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+    return _tensors(out)
+
+
+def critic_state_dict(params: dict, critic: SACCritic) -> dict:
+    """Flax SACCritic params (nested dict of arrays) -> torch state_dict:
+    the torso, then per Q head the Flax MLP_<i> and Dense_<j> in creation
+    order (networks.py:112-126)."""
+    out = {}
+    i = _torso(params, critic.torso, "torso.", out)
+    for q in range(2):
+        _mlp(params[f"MLP_{i + q}"], f"mlps.{q}.", out)
+        _dense(params[f"Dense_{q}"], f"heads.{q}.", out)
+    return _tensors(out)
+
+
+def _load_strict(module, sd):
+    own = module.state_dict()
+    for k, v in sd.items():
+        if k not in own or tuple(own[k].shape) != tuple(v.shape):
+            raise ValueError(f"param {k}: shape {tuple(v.shape)} does not fit the module "
+                             f"({tuple(own[k].shape) if k in own else 'missing'})")
+    module.load_state_dict(sd, strict=True)
+    return module
 
 
 def load_actor_params(actor: SACActor, params: dict):
     """Load Flax-layout params into `actor` (strict: every key must match)."""
-    sd = actor_state_dict(params, actor)
-    own = actor.state_dict()
-    for k, v in sd.items():
-        if k not in own or tuple(own[k].shape) != tuple(v.shape):
-            raise ValueError(f"param {k}: bundle shape {tuple(v.shape)} does not fit the actor "
-                             f"({tuple(own[k].shape) if k in own else 'missing'})")
-    actor.load_state_dict(sd, strict=True)
-    return actor
+    return _load_strict(actor, actor_state_dict(params, actor))
+
+
+def load_sac_state(sac, actor_params, critic_params, target_critic_params, log_alpha):
+    """Carry a whole Flax `SACState` across: actor, critic, target critic
+    (Flax param trees as nested dicts of numpy arrays) and log_alpha into
+    `sac` (algos.sac.SAC). The Adam moments start at zero, as a fresh optax
+    state has them."""
+    dev = sac.log_alpha.device
+    _load_strict(sac.actor, actor_state_dict(actor_params, sac.actor)).to(dev)
+    _load_strict(sac.critic, critic_state_dict(critic_params, sac.critic)).to(dev)
+    _load_strict(sac.target_critic,
+                 critic_state_dict(target_critic_params, sac.target_critic)).to(dev)
+    with torch.no_grad():
+        sac.log_alpha.fill_(float(np.asarray(log_alpha)))
+    sac.reset_optimizers()
+    return sac
 
 
 def read_bundle(npz_dir):

@@ -12,7 +12,12 @@ same inputs: the solver at the JAX package's Pallas-vs-XLA grasp tolerance
 (2e-3 on positions and gripper coordinates, tests/test_solver_pallas.py),
 the raster with segment ids equal on all but 0.05% of pixels and depth to
 1e-4 m on all but 0.5% of the pixels whose ids agree (edge pixels are
-ill-conditioned; see chip_smoke.py).
+ill-conditioned; see chip_smoke.py), and its shade output to 1e-4 on all
+but 0.5% of those pixels and 2e-2 on every one (at a crease between two
+spheres of one object, against either sphere's shade: `raycast.shade_gap`).
+The raster scenes have the gripper yawed, so the finger pads and the camera turn. Each kernel is also
+checked on a training env of the RGB-D flagship (`train`): B=128 as
+`num_envs` gives it, with a randomized camera pose and intrinsics per env.
 """
 
 import os
@@ -31,6 +36,7 @@ from deep_rl_grasping_tpu_torch.utils import config as cfg_util
 pytestmark = pytest.mark.cuda
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(REPO, "trained", "sac_full_flagship_r5c", "config.yaml")
+TRAIN_CONFIG = os.path.join(REPO, "configs", "sac_rgbd_flagship.yaml")
 
 
 @pytest.fixture(scope="module")
@@ -41,10 +47,20 @@ def dev():
 
 
 def _env(dev, scene_type="OnFloor", **tpu):
+    """An eval env of the depth flagship, or with scene_type "train" a
+    training env (randomized camera) of the RGB-D flagship."""
+    if scene_type == "train":
+        env = GraspEnv(cfg_util.load_config(TRAIN_CONFIG), device=dev)
+        assert env.randomize is not None
+        return env
     cfg = cfg_util.load_config(FLAGSHIP)
     cfg["scene"]["scene_type"] = scene_type
     cfg["tpu"].update(tpu)
     return GraspEnv(cfg, evaluate=True, validate=True, device=dev)
+
+
+def _batch_size(env):
+    return int(env.config["tpu"]["num_envs"]) if env.randomize is not None else 16
 
 
 def _grasp_batch(env, B, seed):
@@ -63,10 +79,11 @@ def _grasp_batch(env, B, seed):
     ("OnFloor", {}),
     ("OnTable", {}),
     ("OnFloor", dict(pinch_damping=0.2, oo_point_mass_tangent=False, oo_pass_stride=1)),
-], ids=["floor", "table", "pinch_knobs_off"])
+    ("train", {}),
+], ids=["floor", "table", "pinch_knobs_off", "train"])
 def test_solver_kernel_matches_plain(dev, scene_type, tpu):
     env = _env(dev, scene_type, **tpu)
-    st = _grasp_batch(env, 32, seed=1)
+    st = _grasp_batch(env, 128 if scene_type == "train" else 32, seed=1)
     before = solver_cuda.run_batch.launches
     a = solver_cuda.run_batched_sim(st, env.sim_params, 16)
     assert solver_cuda.run_batch.launches == before + 1
@@ -76,13 +93,24 @@ def test_solver_kernel_matches_plain(dev, scene_type, tpu):
         assert float((x - y).abs().max()) <= 2e-3
 
 
-@pytest.mark.parametrize("scene_type", ["OnFloor", "OnTable"])
+def _raster_args(env, dev):
+    B = _batch_size(env)
+    st = _grasp_batch(env, B, seed=2)
+    q = st.gripper.q.clone()
+    q[:, 3] = torch.linspace(-3.0, 3.0, B, device=dev)
+    st = st.replace(gripper=st.gripper.replace(q=q))
+    es = env.reset_env(torch.Generator(device=dev).manual_seed(3), B, 1.0).replace(sim=st)
+    if env.randomize is not None:  # every env sees through its own camera
+        assert float((es.intrinsics - es.intrinsics[:1]).abs().max()) > 0
+        assert float((es.cam_R - es.cam_R[:1]).abs().max()) > 0
+    cam_pos, cam_R = raycast.camera_pose_from_gripper(st.gripper.q, es.cam_t, es.cam_R)
+    return st, (st, env.sim_params, cam_pos, cam_R, es.intrinsics, 64, 64, env.near, env.far)
+
+
+@pytest.mark.parametrize("scene_type", ["OnFloor", "OnTable", "train"])
 def test_raster_kernel_matches_plain(dev, scene_type):
     env = _env(dev, scene_type)
-    st = _grasp_batch(env, 16, seed=2)
-    es = env.reset_env(torch.Generator(device=dev).manual_seed(3), 16, 1.0).replace(sim=st)
-    cam_pos, cam_R = raycast.camera_pose_from_gripper(st.gripper.q, es.cam_t, es.cam_R)
-    args = (st, env.sim_params, cam_pos, cam_R, es.intrinsics, 64, 64, env.near, env.far)
+    st, args = _raster_args(env, dev)
     before = raster_cuda.raster_depth_seg.launches
     d1, s1 = raster_cuda.render_batch(*args)
     assert raster_cuda.raster_depth_seg.launches == before + 1
@@ -94,6 +122,33 @@ def test_raster_kernel_matches_plain(dev, scene_type):
     assert int((err > 1e-4).sum()) <= 5e-3 * n and float(err.max()) <= 5e-3
     obj0 = 3 if scene_type == "OnTable" else 1
     assert bool(((s1 >= obj0) & (s1 < obj0 + 5)).any())
+
+
+@pytest.mark.parametrize("scene_type", ["OnFloor", "OnTable", "train"])
+def test_raster_shade_kernel_matches_plain(dev, scene_type):
+    env = _env(dev, scene_type)
+    st, args = _raster_args(env, dev)
+    kin, kw = raster_cuda.kernel_inputs(*args)
+    before = (raster_cuda.raster_depth_seg.launches, raster_cuda.raster_depth_seg.shade_launches)
+    d0, s0 = raster_cuda.raster_depth_seg(*kin, **kw)
+    d1, s1, sh1 = raster_cuda.raster_depth_seg(*kin, **kw, with_shade=True)
+    assert (raster_cuda.raster_depth_seg.launches,
+            raster_cuda.raster_depth_seg.shade_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(d0, d1) and torch.equal(s0, s1)  # the shade leaves depth + seg alone
+    d2, s2, sh2 = raycast.render_shade(*args)
+    same = s1 == s2
+    n = s1.numel()
+    assert int((~same).sum()) <= 5e-4 * n
+    # held to the shade of any hit of the same id within 1e-4 m of the
+    # nearest: at a crease between two spheres of one object rounding picks
+    # the sphere, and either shade is right
+    err = raycast.shade_gap(s1, sh1, raycast.hit_candidates(*args[:7], env.near), 1e-4)[same]
+    assert int((err > 1e-4).sum()) <= 5e-3 * n and float(err.max()) <= 2e-2
+    assert float(sh1[s1 < 0].abs().max() if bool((s1 < 0).any()) else 0.0) == 0.0
+    # the RGB the env gets is shade x id color of the kernel's outputs
+    rgb_k, _, _ = raster_cuda.render_batch(*args, with_rgb=True)
+    lut = raycast.color_lut(env.sim_params, st.objects.obj_type)
+    assert torch.equal(rgb_k, raycast.shade_to_rgb(s1, sh1, lut))
 
 
 def test_wrappers_check_their_inputs(dev):

@@ -131,12 +131,17 @@ for m in mods:
     importlib.import_module(m)
 import runpy
 runpy.run_path({os.path.join(REPO, "chip_smoke.py")!r}, run_name="not_main")
-print(len(mods))
+print(" ".join(mods))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300, cwd=REPO)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+    mods = set(out.stdout.strip().splitlines()[-1].split())
+    assert len(mods) >= 27
+    pkg = "deep_rl_grasping_tpu_torch."
+    assert {pkg + m for m in ("algos.replay", "algos.sac", "envs.scripted", "envs.curriculum",
+                              "training.callbacks", "training.trainer", "training.train",
+                              "utils.tb_events", "models.networks")} <= mods
 
 
 def test_chip_smoke_refuses_without_a_card():
