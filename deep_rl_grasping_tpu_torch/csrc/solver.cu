@@ -1,5 +1,6 @@
-// Contact-solver substep loop for the flying-gripper grasp world, one CUDA
-// thread per env.
+// Contact-solver substep loop for the flying-gripper grasp world: one block
+// of two warps per env, the env's contact rows in shared memory, threads
+// over rows.
 //
 // Replaces the Pallas TPU kernel deep_rl_grasping_tpu/ops/solver_pallas.py
 // (_make_kernel :107, called from run_batch :1037 / run_batched_sim :1126).
@@ -13,30 +14,54 @@
 // and integration with finger limits and the fingertip floor stop. Within a
 // category the rows are relaxed Jacobi, as in the plain version.
 //
-// Design. The TPU kernel puts envs on the 128-wide lane axis and holds the
-// whole contact working set in VMEM (up to 100 MB per 128-env block). On
-// Hopper one thread owns one env: its state and contact rows live in
-// registers and thread-local memory (a 58 KB stack frame sized for the
-// largest shapes, which L1/L2 keep resident), the whole substep loop runs in one
-// launch, and there is no shared memory and no barrier. Every loop has a
-// trip count fixed by the launch arguments; there is no convergence loop.
-//
 // What bounds it on the H100: neither bytes nor FLOPs. The inputs and
-// outputs are ~2 KB per env; the work is ~6 x 10^6 dependent float operations
-// per env per control step, serial within a thread, and at B=100 envs only
-// 4 warps run, on 4 of the 132 SMs. The kernel is latency-bound; spreading
-// one env's contact rows over a warp is the obvious next step.
+// outputs are ~2 KB per env and the work ~6 x 10^6 float operations per env
+// per call (~0.01 ms of the card's float32 rate for 128 envs); what takes
+// the time is the chain of dependent steps inside one env: 16 substeps x
+// (4 iterations x ~20 category phases + ~5), ~1,360 phases, each reading
+// the body and gripper velocities the previous one wrote, each a row solve,
+// a barrier, a per-body sum and a barrier.
+//
+// Design. The TPU kernel puts envs on the 128-wide lane axis and holds the
+// whole contact working set in VMEM. Here one block of two warps owns one
+// env, so at B=100-128 there is about one env per SM and the length of
+// that chain is what sets the time. The env's contact rows (geometry,
+// solve constants, the three impulses and the previous normal), its
+// per-body state (pose, velocities, world inverse inertia) and its sphere
+// tables live in dynamic shared memory, sized by the launch's K, S, SC and
+// tray walls (`solver_layout`; ~27 KB at the flagship shapes), laid out as
+// structure of arrays so that thread i touches row i without bank
+// conflicts. Since a category is relaxed Jacobi, its rows are independent:
+// contact generation, the warm-start gate and every relaxation sweep put
+// one row on each thread (strided over the category; at the flagship
+// shapes every static and pad row gets a thread of its own); integration
+// and damping put one body on each thread. The per-body impulse sums that
+// join a category's rows are taken without atomics, in a fixed order: each
+// row writes its dV, dW to a scratch table, then thread (body, component)
+// sums its body's rows in row order (the order of the plain version's
+// segment sum). The gripper's q, qd and motor impulses are held in
+// registers, identical in every thread: the motor rows are 6 scalars that
+// each thread computes itself, and the pads' 6 gripper-velocity sums are
+// each thread's strided partial sum, folded by a __shfl_xor_sync butterfly
+// within each warp and then over the warps in warp order, which gives
+// every thread the same bits. So the kernel is deterministic from run to
+// run. Every loop has a trip count fixed by the launch arguments; there is
+// no convergence loop, and the whole substep loop runs in one launch.
 
 #include <cuda_runtime.h>
 
 #define MAXK 6
 #define MAXS 8
 #define MAXSC 4
-#define MAXNS 5
-#define MAXP ((MAXK * (MAXK - 1)) / 2)
-#define MAX_ST (MAXNS * MAXK * MAXS)
-#define MAX_PD (MAXK * MAXS)
-#define MAX_OO (MAXP * MAXSC * MAXSC)
+#define WARP 32
+#define FULL_MASK 0xffffffffu
+// Threads per env: two warps (one block per env). On the flagship shapes
+// this puts every pad row (K*S = 40 per side) and every static row on a
+// thread of its own; with one warp each pad phase takes two rounds. The
+// wrapper passes the same width (ops/solver_cuda.py THREADS_PER_ENV) and
+// the C entry refuses any other.
+#define THREADS_PER_ENV 64
+#define NWARPS (THREADS_PER_ENV / WARP)
 
 struct SolverParams {
   float dt, support_z, tray_half, tray_wall_height, friction, baumgarte, slop,
@@ -56,6 +81,69 @@ struct SolverParams {
 #define PAD_HZ 0.075f
 #define PAD_CENTER_DEPTH 0.187f
 
+// ---- shared-memory layout (floats), mirrored by ops/solver_cuda.py
+// `launch_config`. A table of n entries keeps field f of entry i at
+// base[f * n + i].
+// Row fields: normal, tangents, contact point relative to body a's COM,
+// effective masses, bias, active flag, impulses, previous normal.
+enum {
+  NX, NY, NZ, T1X, T1Y, T1Z, T2X, T2Y, T2Z, RX, RY, RZ, WN, WT1, WT2, BIAS, ACT,
+  L0, L1, L2, PNX, PNY, PNZ,
+  ST_FIELDS  // 23: statics (plane, tray walls)
+};
+enum { RBX = ST_FIELDS, RBY, PD_FIELDS };             // 25: pad point minus gripper base (x, y)
+enum { OBX = ST_FIELDS, OBY, OBZ, OO_FIELDS };        // 26: pair point minus body b's COM
+// Body fields: pose, velocities, world inverse inertia (xx yy zz xy xz yz),
+// rotation (row-major), inverse mass, alive, local inverse inertia, active
+// pad rows per side.
+enum {
+  PX, PY, PZ, QX, QY, QZ, QW, VX, VY, VZ, WX, WY, WZ, IXX, IYY, IZZ, IXY, IXZ, IYZ,
+  R00, R01, R02, R10, R11, R12, R20, R21, R22, INVM, ALIVE, II0, II1, II2, CNTL, CNTR,
+  BODY_FIELDS  // 35
+};
+// Sphere fields (fine spheres and coarse pair spheres): local center,
+// radius, world center.
+enum { LCX, LCY, LCZ, LRAD, CWX, CWY, CWZ, SPH_FIELDS };  // 7
+
+struct Layout {
+  int K, S, SC, NS, KS, NP, NOO, NST, NPD;
+  int st, pd, oo, body, sph, crs, wlr, scr, total;  // offsets in floats
+};
+
+__host__ __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
+
+__host__ __device__ __forceinline__ Layout solver_layout(int K, int S, int SC, int has_tray) {
+  Layout L;
+  L.K = K;
+  L.S = S;
+  L.SC = SC;
+  L.NS = has_tray ? 5 : 1;
+  L.KS = K * S;
+  L.NP = (K * (K - 1)) / 2;
+  L.NOO = L.NP * SC * SC;
+  L.NST = L.NS * L.KS;
+  L.NPD = 2 * L.KS;
+  int off = 0;
+  L.st = off;
+  off += ST_FIELDS * L.NST;
+  L.pd = off;
+  off += PD_FIELDS * L.NPD;
+  L.oo = off;
+  off += OO_FIELDS * L.NOO;
+  L.body = off;
+  off += BODY_FIELDS * K;
+  L.sph = off;
+  off += SPH_FIELDS * L.KS;
+  L.crs = off;
+  off += SPH_FIELDS * K * SC;
+  L.wlr = off;  // cross effective mass of the aligned left/right pad normal rows
+  off += L.KS;
+  L.scr = off;  // per-row impulse contributions: 6 per row (body a), 12 for pairs (a and b)
+  off += imax(6 * imax(L.NST, L.NPD), 12 * L.NOO);
+  L.total = off;
+  return L;
+}
+
 struct V3 {
   float x, y, z;
 };
@@ -70,15 +158,48 @@ __device__ __forceinline__ V3 cross(V3 a, V3 b) {
 __device__ __forceinline__ float sgnf(float x) { return (float)((x > 0.f) - (x < 0.f)); }
 __device__ __forceinline__ float clampf(float x, float lo, float hi) { return fminf(fmaxf(x, lo), hi); }
 
+// Three consecutive fields f, f+1, f+2 of entry i of a table of n entries.
+__device__ __forceinline__ V3 ld3(const float* t, int n, int f, int i) {
+  return mk(t[f * n + i], t[(f + 1) * n + i], t[(f + 2) * n + i]);
+}
+__device__ __forceinline__ void st3(float* t, int n, int f, int i, V3 v) {
+  t[f * n + i] = v.x;
+  t[(f + 1) * n + i] = v.y;
+  t[(f + 2) * n + i] = v.z;
+}
+
 // Symmetric world inverse inertia (xx, yy, zz, xy, xz, yz).
 struct Sym {
   float xx, yy, zz, xy, xz, yz;
 };
+__device__ __forceinline__ Sym ld_sym(const float* bd, int K, int k) {
+  return {bd[IXX * K + k], bd[IYY * K + k], bd[IZZ * K + k],
+          bd[IXY * K + k], bd[IXZ * K + k], bd[IYZ * K + k]};
+}
 __device__ __forceinline__ V3 sym_apply(const Sym& m, V3 v) {
   return {m.xx * v.x + m.xy * v.y + m.xz * v.z, m.xy * v.x + m.yy * v.y + m.yz * v.z,
           m.xz * v.x + m.yz * v.y + m.zz * v.z};
 }
 __device__ __forceinline__ float sym_quad(const Sym& m, V3 v) { return dot(v, sym_apply(m, v)); }
+
+// sin and cos of the gripper yaw: Cody-Waite reduction by pi/2 and the
+// Cephes minimax polynomials on [-pi/4, pi/4], within 1e-7 of sin and cos
+// for |x| < 100 (the yaw is a few radians at most). sinf/cosf would also
+// carry a Payne-Hanek path for huge arguments, which needs a local array.
+__device__ __forceinline__ void yaw_sincos(float x, float& s, float& c) {
+  const float j = rintf(x * 0.636619772f);
+  float r = fmaf(j, -1.57079637f, x);
+  r = fmaf(j, 4.37113883e-08f, r);
+  const float z = r * r;
+  const float ps =
+      fmaf(fmaf(fmaf(-1.9515295891e-4f, z, 8.3321608736e-3f), z, -1.6666654611e-1f), z * r, r);
+  const float pc = fmaf(fmaf(fmaf(2.443315711809948e-5f, z, -1.388731625493765e-3f), z,
+                             4.166664568298827e-2f),
+                        z * z, fmaf(-0.5f, z, 1.f));
+  const int quadrant = (int)j & 3;
+  s = quadrant == 0 ? ps : (quadrant == 1 ? pc : (quadrant == 2 ? -ps : -pc));
+  c = quadrant == 0 ? pc : (quadrant == 1 ? -ps : (quadrant == 2 ? -pc : ps));
+}
 
 __device__ __forceinline__ void tangent_basis(V3 n, V3& t1, V3& t2) {
   V3 a = fabsf(n.x) < 0.9f ? mk(1.f, 0.f, 0.f) : mk(0.f, 1.f, 0.f);
@@ -97,22 +218,69 @@ __device__ __forceinline__ void sphere_box(V3 c, float r, V3 bc, V3 ax, V3 ay, V
   float l[3] = {dot(ax, d), dot(ay, d), dot(az, d)};
   float h[3] = {he.x, he.y, he.z};
   float dl[3];
+#pragma unroll
   for (int i = 0; i < 3; ++i) dl[i] = l[i] - clampf(l[i], -h[i], h[i]);
   float dist = sqrtf(dl[0] * dl[0] + dl[1] * dl[1] + dl[2] * dl[2]);
   bool outside = dist > 1e-9f;
   float nl[3];
   float inv = 1.f / fmaxf(dist, 1e-9f);
-  for (int i = 0; i < 3; ++i)
-    nl[i] = outside ? dl[i] * inv : (i == in_axis ? in_sign : 0.f);
-  pen = outside ? r - dist : r + h[in_axis] - in_sign * l[in_axis];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) nl[i] = outside ? dl[i] * inv : (i == in_axis ? in_sign : 0.f);
+  float l_in = in_axis == 0 ? l[0] : (in_axis == 1 ? l[1] : l[2]);
+  float h_in = in_axis == 0 ? h[0] : (in_axis == 1 ? h[1] : h[2]);
+  pen = outside ? r - dist : r + h_in - in_sign * l_in;
   n = add(add(scl(ax, nl[0]), scl(ay, nl[1])), scl(az, nl[2]));
 }
 
-// One contact row: geometry, solve constants and impulses.
+// One contact row's solve constants, read from its table.
 struct Row {
-  V3 n, t1, t2, r;  // r: contact point relative to body a's COM
+  V3 n, t1, t2, r;
   float wn, wt1, wt2, bias, act;
 };
+__device__ __forceinline__ Row ld_row(const float* t, int n, int i) {
+  Row w;
+  w.n = ld3(t, n, NX, i);
+  w.t1 = ld3(t, n, T1X, i);
+  w.t2 = ld3(t, n, T2X, i);
+  w.r = ld3(t, n, RX, i);
+  w.wn = t[WN * n + i];
+  w.wt1 = t[WT1 * n + i];
+  w.wt2 = t[WT2 * n + i];
+  w.bias = t[BIAS * n + i];
+  w.act = t[ACT * n + i];
+  return w;
+}
+__device__ __forceinline__ void st_row(float* t, int n, int i, const Row& w) {
+  st3(t, n, NX, i, w.n);
+  st3(t, n, T1X, i, w.t1);
+  st3(t, n, T2X, i, w.t2);
+  st3(t, n, RX, i, w.r);
+  t[WN * n + i] = w.wn;
+  t[WT1 * n + i] = w.wt1;
+  t[WT2 * n + i] = w.wt2;
+  t[BIAS * n + i] = w.bias;
+  t[ACT * n + i] = w.act;
+}
+
+// Warm start of one freshly built row (physics.py:568-585): the previous
+// substep's impulses, gated by normal continuity (zero on the first
+// substep); remembers this substep's normal. Returns the impulse to apply.
+__device__ __forceinline__ V3 warm_row(float* t, int n, int i, const Row& w, bool first,
+                                       float ws) {
+  float lam[3] = {0.f, 0.f, 0.f};
+  if (!first) {
+    const float cont = clampf(dot(ld3(t, n, PNX, i), w.n), 0.f, 1.f);
+    const float g = ws * w.act * cont * cont;
+    lam[0] = t[L0 * n + i] * g;
+    lam[1] = t[L1 * n + i] * g;
+    lam[2] = t[L2 * n + i] * g;
+  }
+  t[L0 * n + i] = lam[0];
+  t[L1 * n + i] = lam[1];
+  t[L2 * n + i] = lam[2];
+  st3(t, n, PNX, i, w.n);
+  return scl(add(add(scl(w.n, lam[0]), scl(w.t1, lam[1])), scl(w.t2, lam[2])), w.act);
+}
 
 // Gripper-side jacobian of a pad row along d: DOFs (x, y, z, yaw, finger).
 __device__ __forceinline__ void pad_jac(V3 d, float rbx, float rby, V3 axis, float j[5]) {
@@ -123,390 +291,497 @@ __device__ __forceinline__ void pad_jac(V3 d, float rbx, float rby, V3 axis, flo
   j[4] = dot(axis, d);
 }
 
-__global__ void solver_kernel(SolverParams sp, const float* __restrict__ gq,
-                              const float* __restrict__ gqd, const float* __restrict__ gtarget,
-                              const float* __restrict__ gftgt, const float* __restrict__ opos,
-                              const float* __restrict__ oquat, const float* __restrict__ olin,
-                              const float* __restrict__ oang, const float* __restrict__ oalive,
-                              const float* __restrict__ lcent, const float* __restrict__ lrad,
-                              const float* __restrict__ lcent2, const float* __restrict__ lrad2,
-                              const float* __restrict__ linvm, const float* __restrict__ linvI,
-                              float* __restrict__ q_out, float* __restrict__ qd_out,
-                              float* __restrict__ pos_out, float* __restrict__ quat_out,
-                              float* __restrict__ lin_out, float* __restrict__ ang_out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e < sp.B) {  // padded threads do nothing; there is no barrier anywhere
-    const int K = sp.K, S = sp.S, SC = sp.SC;
-    const int NS = sp.has_tray ? 5 : 1;
-    const int KS = K * S;
-    const int NP = (K * (K - 1)) / 2;
-    const int NOO = NP * SC * SC;
-    const float dt = sp.dt;
-    const float mu = sp.friction, omega = sp.relaxation;
-    const float floor_q2 = sp.support_z + PAD_CENTER_DEPTH + PAD_HZ;
-    const float bias_coef = sp.baumgarte / dt;
+// Row's contribution to its body: dV = P / m, dW = I^-1 (r x P), into
+// scratch fields f0..f0+5 of a table of nr rows.
+__device__ __forceinline__ void put_contrib(float* scr, int nr, int f0, int row, V3 P,
+                                            float invm, const Sym& iI, V3 r) {
+  st3(scr, nr, f0, row, scl(P, invm));
+  st3(scr, nr, f0 + 3, row, sym_apply(iI, cross(r, P)));
+}
 
-    float q[6], qd[6], tgt[4];
-    for (int d = 0; d < 6; ++d) {
-      q[d] = gq[e * 6 + d];
-      qd[d] = gqd[e * 6 + d];
+// Sum of x over the warp; every lane gets the same bits (each butterfly
+// level adds the same two values in either order, and float addition is
+// commutative).
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int m = WARP / 2; m > 0; m >>= 1) x += __shfl_xor_sync(FULL_MASK, x, m);
+  return x;
+}
+
+// Barrier among the threads of one env (its block).
+__device__ __forceinline__ void env_sync() { __syncthreads(); }
+
+// Sums over the env's threads of 6 values; every thread gets the same bits:
+// each warp folds its lanes by the butterfly, then every thread adds the
+// warps' sums in warp order from `red` (6 * NWARPS floats).
+__device__ __forceinline__ void env_sum6(float v[6], float* red, int tid) {
+#pragma unroll
+  for (int d = 0; d < 6; ++d) v[d] = warp_sum(v[d]);
+  if (tid % WARP == 0)
+#pragma unroll
+    for (int d = 0; d < 6; ++d) red[d * NWARPS + tid / WARP] = v[d];
+  __syncthreads();
+#pragma unroll
+  for (int d = 0; d < 6; ++d) {
+    float acc = red[d * NWARPS];
+#pragma unroll
+    for (int w = 1; w < NWARPS; ++w) acc += red[d * NWARPS + w];
+    v[d] = acc;
+  }
+}
+
+// Per-body sums of a category whose rows of body k are
+// g * KS + k * S + s (g < ngroups, s < S): thread (k, component) adds its
+// body's rows in row order, then adds the sum to V or W.
+__device__ __forceinline__ void reduce_blocks(float* bd, const float* scr, int nr,
+                                              int ngroups, const Layout& L, int tid) {
+  for (int idx = tid; idx < L.K * 6; idx += THREADS_PER_ENV) {
+    const int k = idx / 6, f = idx % 6;
+    const float* src = scr + f * nr + k * L.S;
+    float acc = 0.f;
+    for (int g = 0; g < ngroups; ++g) {
+      const float* row = src + g * L.KS;
+#pragma unroll
+      for (int s = 0; s < MAXS; ++s)
+        if (s < L.S) acc += row[s];
     }
-    for (int d = 0; d < 4; ++d) tgt[d] = gtarget[e * 4 + d];
-    const float ftgt = gftgt[e];
+    bd[(VX + f) * L.K + k] += acc;  // VX..VZ then WX..WZ
+  }
+}
 
-    V3 pos[MAXK], V[MAXK], W[MAXK];
-    float quat[MAXK][4], alive[MAXK], invm[MAXK], invI[MAXK][3];
-    for (int k = 0; k < K; ++k) {
-      const int o = e * K + k;
-      pos[k] = mk(opos[o * 3], opos[o * 3 + 1], opos[o * 3 + 2]);
-      V[k] = mk(olin[o * 3], olin[o * 3 + 1], olin[o * 3 + 2]);
-      W[k] = mk(oang[o * 3], oang[o * 3 + 1], oang[o * 3 + 2]);
-      for (int c = 0; c < 4; ++c) quat[k][c] = oquat[o * 4 + c];
-      alive[k] = oalive[o];
-      invm[k] = linvm[o];
-      for (int c = 0; c < 3; ++c) invI[k][c] = linvI[o * 3 + c];
+__host__ __device__ __forceinline__ int pair_index(int i, int j, int K) {
+  return i * K - (i * (i + 1)) / 2 + (j - i - 1);
+}
+
+// Per-body sums of the object-pair rows: body k takes minus the b-side
+// contributions of pairs (i, k), i < k, then the a-side ones of pairs
+// (k, j), in row order.
+__device__ __forceinline__ void reduce_pairs(float* bd, const float* scr, const Layout& L,
+                                             int tid) {
+  const int q = L.SC * L.SC, nr = L.NOO;
+  for (int idx = tid; idx < L.K * 6; idx += THREADS_PER_ENV) {
+    const int k = idx / 6, f = idx % 6;
+    float acc = 0.f;
+    for (int i = 0; i < k; ++i) {
+      const float* src = scr + (6 + f) * nr + pair_index(i, k, L.K) * q;
+      for (int c = 0; c < q; ++c) acc -= src[c];
     }
-
-    // Servo plan constants (physics.py:643).
-    float a_brake[6];
-    for (int d = 0; d < 6; ++d) {
-      float a_max = sp.dof_force[d] / sp.dof_mass[d];
-      float g_load = d == 2 ? -sp.gravity : 0.f;
-      a_brake[d] = fmaxf(0.8f * a_max - g_load, 0.5f);
+    for (int j = k + 1; j < L.K; ++j) {
+      const float* src = scr + f * nr + pair_index(k, j, L.K) * q;
+      for (int c = 0; c < q; ++c) acc += src[c];
     }
+    bd[(VX + f) * L.K + k] += acc;
+  }
+}
 
-    // Tray walls (static OBBs, world-axis aligned).
-    const float th = sp.tray_half, wh = sp.tray_wall_height;
-    const V3 wall_c[4] = {mk(th + 0.02f, 0.f, sp.support_z + wh * 0.5f),
-                          mk(-(th + 0.02f), 0.f, sp.support_z + wh * 0.5f),
-                          mk(0.f, th + 0.02f, sp.support_z + wh * 0.5f),
-                          mk(0.f, -(th + 0.02f), sp.support_z + wh * 0.5f)};
-    const V3 wall_he[4] = {mk(0.02f, th + 0.04f, wh * 0.5f), mk(0.02f, th + 0.04f, wh * 0.5f),
-                           mk(th + 0.04f, 0.02f, wh * 0.5f), mk(th + 0.04f, 0.02f, wh * 0.5f)};
-    const int wall_ax[4] = {0, 0, 1, 1};
-    const float wall_sg[4] = {-1.f, 1.f, -1.f, 1.f};
+// Projected normal + Coulomb friction update of one Jacobi row at relative
+// velocity v; returns the impulse increment and stores the new impulses.
+__device__ __forceinline__ V3 solve_row(float* t, int n, int i, const Row& w, V3 v, float mu,
+                                        float omega) {
+  const float l0 = t[L0 * n + i], l1 = t[L1 * n + i], l2 = t[L2 * n + i];
+  float dl_n = (w.bias - dot(v, w.n)) / w.wn * omega;
+  const float ln = fmaxf(l0 + dl_n, 0.f);
+  dl_n = ln - l0;
+  float lt1 = l1 - dot(v, w.t1) / w.wt1 * omega;
+  float lt2 = l2 - dot(v, w.t2) / w.wt2 * omega;
+  const float tn = sqrtf(lt1 * lt1 + lt2 * lt2);
+  const float sc = fminf(1.f, mu * ln / fmaxf(tn, 1e-9f));
+  lt1 *= sc;
+  lt2 *= sc;
+  V3 P = add(add(scl(w.n, dl_n), scl(w.t1, lt1 - l1)), scl(w.t2, lt2 - l2));
+  t[L0 * n + i] = ln;
+  t[L1 * n + i] = lt1;
+  t[L2 * n + i] = lt2;
+  return scl(P, w.act);
+}
 
-    // Rows and warm-start memory (impulses and normals of the last substep).
-    Row st[MAX_ST], pl[MAX_PD], pr[MAX_PD], oo[MAX_OO];
-    float lst[MAX_ST][3], lpl[MAX_PD][3], lpr[MAX_PD][3], loo[MAX_OO][3];
-    V3 nst[MAX_ST], npl[MAX_PD], npr[MAX_PD], noo[MAX_OO];
-    float plrb[MAX_PD][2], prrb[MAX_PD][2];  // pad point minus gripper base (x, y)
-    V3 oorb[MAX_OO];                         // pair point minus body b's COM
-    float padwlr[MAX_PD];
-    float cntL[MAXK], cntR[MAXK];
-    int pi_[MAXP], pj_[MAXP];
-    {
-      int p = 0;
-      for (int i = 0; i < K; ++i)
-        for (int j = i + 1; j < K; ++j) {
-          pi_[p] = i;
-          pj_[p] = j;
-          ++p;
-        }
-    }
+__global__ void __launch_bounds__(THREADS_PER_ENV, 1)
+    solver_kernel(SolverParams sp, const float* __restrict__ gq, const float* __restrict__ gqd,
+                  const float* __restrict__ gtarget, const float* __restrict__ gftgt,
+                  const float* __restrict__ opos, const float* __restrict__ oquat,
+                  const float* __restrict__ olin, const float* __restrict__ oang,
+                  const float* __restrict__ oalive, const float* __restrict__ lcent,
+                  const float* __restrict__ lrad, const float* __restrict__ lcent2,
+                  const float* __restrict__ lrad2, const float* __restrict__ linvm,
+                  const float* __restrict__ linvI, float* __restrict__ q_out,
+                  float* __restrict__ qd_out, float* __restrict__ pos_out,
+                  float* __restrict__ quat_out, float* __restrict__ lin_out,
+                  float* __restrict__ ang_out) {
+  extern __shared__ float sm[];
+  __shared__ float red[6 * NWARPS];
+  const int e = blockIdx.x;
+  const int tid = threadIdx.x;
+  const Layout L = solver_layout(sp.K, sp.S, sp.SC, sp.has_tray);
+  const int K = L.K, S = L.S, SC = L.SC, NS = L.NS, KS = L.KS, NST = L.NST, NPD = L.NPD,
+            NOO = L.NOO;
+  float* st = sm + L.st;
+  float* pd = sm + L.pd;
+  float* oo = sm + L.oo;
+  float* bd = sm + L.body;
+  float* sph = sm + L.sph;
+  float* crs = sm + L.crs;
+  float* wlr = sm + L.wlr;
+  float* scr = sm + L.scr;
+  const float dt = sp.dt;
+  const float mu = sp.friction, omega = sp.relaxation;
+  const float floor_q2 = sp.support_z + PAD_CENTER_DEPTH + PAD_HZ;
+  const float bias_coef = sp.baumgarte / dt;
+
+  // Gripper state: registers, the same in every thread.
+  float q[6], qd[6], tgt[4], idm[6], a_brake[6];
+#pragma unroll
+  for (int d = 0; d < 6; ++d) {
+    q[d] = gq[e * 6 + d];
+    qd[d] = gqd[e * 6 + d];
+    idm[d] = 1.f / sp.dof_mass[d];
+    // servo plan constants (physics.py:643)
+    const float a_max = sp.dof_force[d] / sp.dof_mass[d];
+    const float g_load = d == 2 ? -sp.gravity : 0.f;
+    a_brake[d] = fmaxf(0.8f * a_max - g_load, 0.5f);
+  }
+#pragma unroll
+  for (int d = 0; d < 4; ++d) tgt[d] = gtarget[e * 4 + d];
+  const float ftgt = gftgt[e];
+
+  // Bodies and sphere tables into shared memory.
+  for (int k = tid; k < K; k += THREADS_PER_ENV) {
+    const int o = e * K + k;
+    st3(bd, K, PX, k, mk(opos[o * 3], opos[o * 3 + 1], opos[o * 3 + 2]));
+    st3(bd, K, VX, k, mk(olin[o * 3], olin[o * 3 + 1], olin[o * 3 + 2]));
+    st3(bd, K, WX, k, mk(oang[o * 3], oang[o * 3 + 1], oang[o * 3 + 2]));
+    for (int c = 0; c < 4; ++c) bd[(QX + c) * K + k] = oquat[o * 4 + c];
+    for (int c = 0; c < 3; ++c) bd[(II0 + c) * K + k] = linvI[o * 3 + c];
+    bd[ALIVE * K + k] = oalive[o];
+    bd[INVM * K + k] = linvm[o];
+  }
+  for (int i = tid; i < KS; i += THREADS_PER_ENV) {
+    const int g = e * KS + i;
+    st3(sph, KS, LCX, i, mk(lcent[g * 3], lcent[g * 3 + 1], lcent[g * 3 + 2]));
+    sph[LRAD * KS + i] = lrad[g];
+  }
+  for (int i = tid; i < K * SC; i += THREADS_PER_ENV) {
+    const int g = e * K * SC + i;
+    st3(crs, K * SC, LCX, i, mk(lcent2[g * 3], lcent2[g * 3 + 1], lcent2[g * 3 + 2]));
+    crs[LRAD * K * SC + i] = lrad2[g];
+  }
+
+  // Tray walls (static OBBs, world-axis aligned).
+  const float th = sp.tray_half, wh = sp.tray_wall_height;
+  const V3 ex0 = mk(1.f, 0.f, 0.f), ey0 = mk(0.f, 1.f, 0.f), ez = mk(0.f, 0.f, 1.f);
+  const float ws = sp.warm_start;
+  env_sync();
 
 #pragma unroll 1
-    for (int step = 0; step < sp.n_substeps; ++step) {
-      const bool first = step == 0;
-      // ---- 1. free-velocity update + servo plan
-      qd[2] += sp.gravity * dt;
-      float full_t[6] = {tgt[0], tgt[1], fmaxf(tgt[2], floor_q2), tgt[3], ftgt, ftgt};
-      float v_des[6], cap[6];
+  for (int step = 0; step < sp.n_substeps; ++step) {
+    const bool first = step == 0;
+    // ---- 1. free-velocity update + servo plan
+    qd[2] += sp.gravity * dt;
+    float v_des[6], cap[6];
+    {
+      const float full_t[6] = {tgt[0], tgt[1], fmaxf(tgt[2], floor_q2), tgt[3], ftgt, ftgt};
+#pragma unroll
       for (int d = 0; d < 6; ++d) {
-        float err = full_t[d] - q[d];
-        float v_stop = sqrtf(2.f * a_brake[d] * fabsf(err));
+        const float err = full_t[d] - q[d];
+        const float v_stop = sqrtf(2.f * a_brake[d] * fabsf(err));
         v_des[d] = sgnf(err) * fminf(fminf(fabsf(err) / dt, v_stop), sp.dof_vmax[d]);
         cap[d] = sp.dof_force[d] * dt;
       }
+    }
+    // ---- 2. per body: damped free velocity, rotation, world inverse inertia
+    {
       const float ld = 1.f - sp.lin_damping * dt, ad = 1.f - sp.ang_damping * dt;
-      for (int k = 0; k < K; ++k) {
-        V[k] = mk(V[k].x * ld, V[k].y * ld, (V[k].z + sp.gravity * dt) * ld);
-        W[k] = scl(W[k], ad);
-      }
-
-      // ---- 2. rotations and world inverse inertia
-      float R[MAXK][3][3];
-      Sym iI[MAXK];
-      for (int k = 0; k < K; ++k) {
-        float x = quat[k][0], y = quat[k][1], z = quat[k][2], w = quat[k][3];
-        R[k][0][0] = 1 - 2 * (y * y + z * z);
-        R[k][0][1] = 2 * (x * y - w * z);
-        R[k][0][2] = 2 * (x * z + w * y);
-        R[k][1][0] = 2 * (x * y + w * z);
-        R[k][1][1] = 1 - 2 * (x * x + z * z);
-        R[k][1][2] = 2 * (y * z - w * x);
-        R[k][2][0] = 2 * (x * z - w * y);
-        R[k][2][1] = 2 * (y * z + w * x);
-        R[k][2][2] = 1 - 2 * (x * x + y * y);
+      for (int k = tid; k < K; k += THREADS_PER_ENV) {
+        const V3 V = ld3(bd, K, VX, k), W = ld3(bd, K, WX, k);
+        st3(bd, K, VX, k, mk(V.x * ld, V.y * ld, (V.z + sp.gravity * dt) * ld));
+        st3(bd, K, WX, k, scl(W, ad));
+        const float x = bd[QX * K + k], y = bd[QY * K + k], z = bd[QZ * K + k],
+                    w = bd[QW * K + k];
+        float R[3][3];
+        R[0][0] = 1 - 2 * (y * y + z * z);
+        R[0][1] = 2 * (x * y - w * z);
+        R[0][2] = 2 * (x * z + w * y);
+        R[1][0] = 2 * (x * y + w * z);
+        R[1][1] = 1 - 2 * (x * x + z * z);
+        R[1][2] = 2 * (y * z - w * x);
+        R[2][0] = 2 * (x * z - w * y);
+        R[2][1] = 2 * (y * z + w * x);
+        R[2][2] = 1 - 2 * (x * x + y * y);
+        const float i0 = bd[II0 * K + k], i1 = bd[II1 * K + k], i2 = bd[II2 * K + k];
         float m[3][3];
-        for (int i = 0; i < 3; ++i)
-          for (int l = 0; l < 3; ++l)
-            m[i][l] = R[k][i][0] * invI[k][0] * R[k][l][0] + R[k][i][1] * invI[k][1] * R[k][l][1] +
-                      R[k][i][2] * invI[k][2] * R[k][l][2];
-        iI[k] = {m[0][0], m[1][1], m[2][2], m[0][1], m[0][2], m[1][2]};
-      }
-
-      // ---- 3. gripper frame
-      const float cyw = cosf(q[3]), syw = sinf(q[3]);
-      const V3 ex = mk(cyw, syw, 0.f), ey = mk(-syw, cyw, 0.f), ez = mk(0.f, 0.f, 1.f);
-      const V3 base = mk(q[0], q[1], q[2]);
-      const V3 c_l = mk(q[0] - ex.x * (PAD_X_OFFSET - q[4]), q[1] - ex.y * (PAD_X_OFFSET - q[4]),
-                        q[2] - PAD_CENTER_DEPTH);
-      const V3 c_r = mk(q[0] + ex.x * (PAD_X_OFFSET - q[5]), q[1] + ex.y * (PAD_X_OFFSET - q[5]),
-                        q[2] - PAD_CENTER_DEPTH);
-      const V3 axis_l = ex, axis_r = scl(ex, -1.f);
-      const float idm[6] = {1.f / sp.dof_mass[0], 1.f / sp.dof_mass[1], 1.f / sp.dof_mass[2],
-                            1.f / sp.dof_mass[3], 1.f / sp.dof_mass[4], 1.f / sp.dof_mass[5]};
-
-      // ---- 4. contacts and solve constants
-      for (int k = 0; k < K; ++k) {
-        cntL[k] = 0.f;
-        cntR[k] = 0.f;
-      }
-      for (int k = 0; k < K; ++k) {
-        const int o = e * K + k;
-        for (int s = 0; s < S; ++s) {
-          const float rad = lrad[o * S + s];
-          const float* lc = lcent + (o * S + s) * 3;
-          V3 cw = mk(pos[k].x + R[k][0][0] * lc[0] + R[k][0][1] * lc[1] + R[k][0][2] * lc[2],
-                     pos[k].y + R[k][1][0] * lc[0] + R[k][1][1] * lc[1] + R[k][1][2] * lc[2],
-                     pos[k].z + R[k][2][0] * lc[0] + R[k][2][1] * lc[1] + R[k][2][2] * lc[2]);
-          const bool smask = rad > 0.f && alive[k] > 0.5f;
-          const int slot = k * S + s;
-          // statics: plane, then walls
-          for (int w = 0; w < NS; ++w) {
-            V3 n;
-            float pen;
-            if (w == 0) {
-              n = ez;
-              pen = sp.support_z - (cw.z - rad);
-            } else {
-              sphere_box(cw, rad, wall_c[w - 1], mk(1.f, 0.f, 0.f), mk(0.f, 1.f, 0.f), ez,
-                         wall_he[w - 1], wall_ax[w - 1], wall_sg[w - 1], n, pen);
-            }
-            Row& rw = st[w * KS + slot];
-            rw.n = n;
-            rw.r = sub(sub(cw, scl(n, rad)), pos[k]);
-            rw.act = (smask && pen > 0.f) ? 1.f : 0.f;
-            rw.bias = fminf(bias_coef * fmaxf(pen - sp.slop, 0.f), sp.max_bias_velocity);
-            tangent_basis(n, rw.t1, rw.t2);
-            rw.wn = fmaxf(invm[k] + sym_quad(iI[k], cross(rw.r, rw.n)), 1e-9f);
-            rw.wt1 = fmaxf(invm[k] + sym_quad(iI[k], cross(rw.r, rw.t1)), 1e-9f);
-            rw.wt2 = fmaxf(invm[k] + sym_quad(iI[k], cross(rw.r, rw.t2)), 1e-9f);
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+#pragma unroll
+          for (int b = 0; b < 3; ++b) {
+            m[a][b] = R[a][0] * i0 * R[b][0] + R[a][1] * i1 * R[b][1] + R[a][2] * i2 * R[b][2];
+            bd[(R00 + 3 * a + b) * K + k] = R[a][b];
           }
-          // finger pads
-          for (int side = 0; side < 2; ++side) {
-            V3 n;
-            float pen;
-            sphere_box(cw, rad, side == 0 ? c_l : c_r, ex, ey, ez, mk(PAD_HX, PAD_HY, PAD_HZ), 0,
-                       side == 0 ? 1.f : -1.f, n, pen);
-            Row& rw = side == 0 ? pl[slot] : pr[slot];
-            float* rb = side == 0 ? plrb[slot] : prrb[slot];
-            const V3 axis = side == 0 ? axis_l : axis_r;
-            const V3 pt = sub(cw, scl(n, rad));
-            rw.n = n;
-            rw.r = sub(pt, pos[k]);
-            rb[0] = pt.x - base.x;
-            rb[1] = pt.y - base.y;
-            rw.act = (smask && pen > 0.f) ? 1.f : 0.f;
-            rw.bias = fminf(bias_coef * fmaxf(pen - sp.slop, 0.f), sp.max_bias_velocity);
-            tangent_basis(n, rw.t1, rw.t2);
-            const int fd = side == 0 ? 4 : 5;
-            float j[5];
-            V3 dirs[3] = {rw.n, rw.t1, rw.t2};
-            float ws[3];
-            for (int di = 0; di < 3; ++di) {
-              pad_jac(dirs[di], rb[0], rb[1], axis, j);
-              ws[di] = fmaxf(invm[k] + sym_quad(iI[k], cross(rw.r, dirs[di])) +
-                                 j[0] * j[0] * idm[0] + j[1] * j[1] * idm[1] +
-                                 j[2] * j[2] * idm[2] + j[3] * j[3] * idm[3] +
-                                 j[4] * j[4] * idm[fd],
-                             1e-9f);
-            }
-            rw.wn = ws[0];
-            rw.wt1 = ws[1];
-            rw.wt2 = ws[2];
-            if (side == 0)
-              cntL[k] += rw.act;
-            else
-              cntR[k] += rw.act;
-          }
-        }
+        bd[IXX * K + k] = m[0][0];
+        bd[IYY * K + k] = m[1][1];
+        bd[IZZ * K + k] = m[2][2];
+        bd[IXY * K + k] = m[0][1];
+        bd[IXZ * K + k] = m[0][2];
+        bd[IYZ * K + k] = m[1][2];
       }
-      // cross effective mass of the aligned left/right pad normal rows
-      for (int slot = 0; slot < KS; ++slot) {
-        const int k = slot / S;
-        const Row& L = pl[slot];
-        const Row& Rr = pr[slot];
-        float jl[5], jr[5];
-        pad_jac(L.n, plrb[slot][0], plrb[slot][1], axis_l, jl);
-        pad_jac(Rr.n, prrb[slot][0], prrb[slot][1], axis_r, jr);
-        float w_obj = invm[k] * dot(L.n, Rr.n) + dot(cross(L.r, L.n), sym_apply(iI[k], cross(Rr.r, Rr.n)));
-        float w_dof = jl[0] * idm[0] * jr[0] + jl[1] * idm[1] * jr[1] + jl[2] * idm[2] * jr[2] +
-                      jl[3] * idm[3] * jr[3];
-        padwlr[slot] = (w_obj + w_dof) * (L.act * Rr.act);
-      }
-      // object pairs (coarse spheres)
-      for (int p = 0; p < NP; ++p) {
-        const int i = pi_[p], j = pj_[p];
-        const int oi = e * K + i, oj = e * K + j;
-        for (int a = 0; a < SC; ++a) {
-          const float* la = lcent2 + (oi * SC + a) * 3;
-          const float ra = lrad2[oi * SC + a];
-          V3 ca = mk(pos[i].x + R[i][0][0] * la[0] + R[i][0][1] * la[1] + R[i][0][2] * la[2],
-                     pos[i].y + R[i][1][0] * la[0] + R[i][1][1] * la[1] + R[i][1][2] * la[2],
-                     pos[i].z + R[i][2][0] * la[0] + R[i][2][1] * la[1] + R[i][2][2] * la[2]);
-          for (int b = 0; b < SC; ++b) {
-            const float* lb = lcent2 + (oj * SC + b) * 3;
-            const float rbd = lrad2[oj * SC + b];
-            V3 cb = mk(pos[j].x + R[j][0][0] * lb[0] + R[j][0][1] * lb[1] + R[j][0][2] * lb[2],
-                       pos[j].y + R[j][1][0] * lb[0] + R[j][1][1] * lb[1] + R[j][1][2] * lb[2],
-                       pos[j].z + R[j][2][0] * lb[0] + R[j][2][1] * lb[1] + R[j][2][2] * lb[2]);
-            V3 d = sub(ca, cb);
-            float dist = sqrtf(dot(d, d));
-            float rsum = ra + rbd;
-            float pen = rsum - dist;
-            V3 n = scl(d, 1.f / fmaxf(dist, 1e-9f));
-            V3 pt = add(cb, scl(n, rbd + 0.5f * (dist - rsum)));
-            const bool m = ra > 0.f && rbd > 0.f && alive[i] > 0.5f && alive[j] > 0.5f;
-            const int slot = (p * SC + a) * SC + b;
-            Row& rw = oo[slot];
-            rw.n = n;
-            rw.r = sub(pt, pos[i]);
-            oorb[slot] = sub(pt, pos[j]);
-            rw.act = (m && pen > 0.f) ? 1.f : 0.f;
-            rw.bias = fminf(bias_coef * fmaxf(pen - sp.slop, 0.f), sp.max_bias_velocity);
-            tangent_basis(n, rw.t1, rw.t2);
-            rw.wn = fmaxf(invm[i] + sym_quad(iI[i], cross(rw.r, n)) + invm[j] +
-                              sym_quad(iI[j], cross(oorb[slot], n)),
-                          1e-9f);
-            if (sp.oo_pm_tangent) {
-              rw.wt1 = rw.wt2 = fmaxf(invm[i] + invm[j], 1e-9f);
-            } else {
-              rw.wt1 = fmaxf(invm[i] + sym_quad(iI[i], cross(rw.r, rw.t1)) + invm[j] +
-                                 sym_quad(iI[j], cross(oorb[slot], rw.t1)),
-                             1e-9f);
-              rw.wt2 = fmaxf(invm[i] + sym_quad(iI[i], cross(rw.r, rw.t2)) + invm[j] +
-                                 sym_quad(iI[j], cross(oorb[slot], rw.t2)),
-                             1e-9f);
-            }
-          }
-        }
-      }
+    }
+    // ---- 3. gripper frame (every thread)
+    float cyw, syw;
+    yaw_sincos(q[3], syw, cyw);
+    const V3 ex = mk(cyw, syw, 0.f), ey = mk(-syw, cyw, 0.f);
+    const V3 base = mk(q[0], q[1], q[2]);
+    const V3 c_l = mk(q[0] - ex.x * (PAD_X_OFFSET - q[4]), q[1] - ex.y * (PAD_X_OFFSET - q[4]),
+                      q[2] - PAD_CENTER_DEPTH);
+    const V3 c_r = mk(q[0] + ex.x * (PAD_X_OFFSET - q[5]), q[1] + ex.y * (PAD_X_OFFSET - q[5]),
+                      q[2] - PAD_CENTER_DEPTH);
+    const V3 axis_l = ex, axis_r = scl(ex, -1.f);
+    env_sync();
 
-      // ---- 5. warm start, gated by normal continuity (physics.py:568-585)
-      V3 dV[MAXK], dW[MAXK];
-      float dqd[6];
-      for (int k = 0; k < K; ++k) dV[k] = dW[k] = mk(0.f, 0.f, 0.f);
-      for (int d = 0; d < 6; ++d) dqd[d] = 0.f;
-      const float ws = first ? 0.f : sp.warm_start;
-      for (int c = 0; c < NS * KS; ++c) {
-        const Row& rw = st[c];
-        float cont = first ? 0.f : clampf(dot(nst[c], rw.n), 0.f, 1.f);
-        float g = ws * rw.act * cont * cont;
-        for (int l = 0; l < 3; ++l) lst[c][l] = first ? 0.f : lst[c][l] * g;
-        V3 P = scl(add(add(scl(rw.n, lst[c][0]), scl(rw.t1, lst[c][1])), scl(rw.t2, lst[c][2])), rw.act);
-        const int k = (c % KS) / S;
-        dV[k] = add(dV[k], scl(P, invm[k]));
-        dW[k] = add(dW[k], sym_apply(iI[k], cross(rw.r, P)));
+    // ---- 4. world sphere centers, one sphere per thread
+    for (int i = tid; i < KS + K * SC; i += THREADS_PER_ENV) {
+      const bool fine = i < KS;
+      float* tab = fine ? sph : crs;
+      const int n = fine ? KS : K * SC;
+      const int j = fine ? i : i - KS;
+      const int k = j / (fine ? S : SC);
+      const V3 lc = ld3(tab, n, LCX, j);
+      const V3 p = ld3(bd, K, PX, k);
+      st3(tab, n, CWX, j,
+          mk(p.x + bd[R00 * K + k] * lc.x + bd[R01 * K + k] * lc.y + bd[R02 * K + k] * lc.z,
+             p.y + bd[R10 * K + k] * lc.x + bd[R11 * K + k] * lc.y + bd[R12 * K + k] * lc.z,
+             p.z + bd[R20 * K + k] * lc.x + bd[R21 * K + k] * lc.y + bd[R22 * K + k] * lc.z));
+    }
+    env_sync();
+
+    // ---- 5. rows and their warm starts, one row per thread, category by
+    // category (row constants depend on poses only, not on velocities).
+    // statics: plane, then walls
+    for (int c = tid; c < NST; c += THREADS_PER_ENV) {
+      const int w = c / KS, slot = c % KS, k = slot / S;
+      const V3 cw = ld3(sph, KS, CWX, slot);
+      const float rad = sph[LRAD * KS + slot];
+      const bool smask = rad > 0.f && bd[ALIVE * K + k] > 0.5f;
+      V3 n;
+      float pen;
+      if (w == 0) {
+        n = ez;
+        pen = sp.support_z - (cw.z - rad);
+      } else {
+        const int wi = w - 1;  // +x, -x, +y, -y wall
+        const float cx = wi == 0 ? th + 0.02f : (wi == 1 ? -(th + 0.02f) : 0.f);
+        const float cy = wi == 2 ? th + 0.02f : (wi == 3 ? -(th + 0.02f) : 0.f);
+        const V3 he = wi < 2 ? mk(0.02f, th + 0.04f, wh * 0.5f) : mk(th + 0.04f, 0.02f, wh * 0.5f);
+        sphere_box(cw, rad, mk(cx, cy, sp.support_z + wh * 0.5f), ex0, ey0, ez, he,
+                   wi < 2 ? 0 : 1, (wi % 2 == 0) ? -1.f : 1.f, n, pen);
       }
-      for (int side = 0; side < 2; ++side) {
-        for (int c = 0; c < KS; ++c) {
-          const Row& rw = side == 0 ? pl[c] : pr[c];
-          float* lam = side == 0 ? lpl[c] : lpr[c];
-          const V3 nold = side == 0 ? npl[c] : npr[c];
-          const float* rb = side == 0 ? plrb[c] : prrb[c];
-          float cont = first ? 0.f : clampf(dot(nold, rw.n), 0.f, 1.f);
-          float g = ws * rw.act * cont * cont;
-          for (int l = 0; l < 3; ++l) lam[l] = first ? 0.f : lam[l] * g;
-          V3 P = scl(add(add(scl(rw.n, lam[0]), scl(rw.t1, lam[1])), scl(rw.t2, lam[2])), rw.act);
-          const int k = c / S;
-          dV[k] = add(dV[k], scl(P, invm[k]));
-          dW[k] = add(dW[k], sym_apply(iI[k], cross(rw.r, P)));
+      Row rw;
+      rw.n = n;
+      rw.r = sub(sub(cw, scl(n, rad)), ld3(bd, K, PX, k));
+      rw.act = (smask && pen > 0.f) ? 1.f : 0.f;
+      rw.bias = fminf(bias_coef * fmaxf(pen - sp.slop, 0.f), sp.max_bias_velocity);
+      tangent_basis(n, rw.t1, rw.t2);
+      const Sym iI = ld_sym(bd, K, k);
+      const float im = bd[INVM * K + k];
+      rw.wn = fmaxf(im + sym_quad(iI, cross(rw.r, rw.n)), 1e-9f);
+      rw.wt1 = fmaxf(im + sym_quad(iI, cross(rw.r, rw.t1)), 1e-9f);
+      rw.wt2 = fmaxf(im + sym_quad(iI, cross(rw.r, rw.t2)), 1e-9f);
+      st_row(st, NST, c, rw);
+      put_contrib(scr, NST, 0, c, warm_row(st, NST, c, rw, first, ws), im, iI, rw.r);
+    }
+    env_sync();
+    if (!first) {
+      reduce_blocks(bd, scr, NST, NS, L, tid);
+      env_sync();
+    }
+
+    // finger pads: rows side * KS + slot
+    {
+      float dq[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      for (int c = tid; c < NPD; c += THREADS_PER_ENV) {
+        const int side = c / KS, slot = c % KS, k = slot / S;
+        const V3 cw = ld3(sph, KS, CWX, slot);
+        const float rad = sph[LRAD * KS + slot];
+        const bool smask = rad > 0.f && bd[ALIVE * K + k] > 0.5f;
+        V3 n;
+        float pen;
+        sphere_box(cw, rad, side == 0 ? c_l : c_r, ex, ey, ez, mk(PAD_HX, PAD_HY, PAD_HZ), 0,
+                   side == 0 ? 1.f : -1.f, n, pen);
+        const V3 axis = side == 0 ? axis_l : axis_r;
+        const V3 pt = sub(cw, scl(n, rad));
+        Row rw;
+        rw.n = n;
+        rw.r = sub(pt, ld3(bd, K, PX, k));
+        const float rbx = pt.x - base.x, rby = pt.y - base.y;
+        rw.act = (smask && pen > 0.f) ? 1.f : 0.f;
+        rw.bias = fminf(bias_coef * fmaxf(pen - sp.slop, 0.f), sp.max_bias_velocity);
+        tangent_basis(n, rw.t1, rw.t2);
+        const Sym iI = ld_sym(bd, K, k);
+        const float im = bd[INVM * K + k];
+        const float idf = side == 0 ? idm[4] : idm[5];
+        const V3 dirs[3] = {rw.n, rw.t1, rw.t2};
+        float wdir[3];
+#pragma unroll
+        for (int di = 0; di < 3; ++di) {
           float j[5];
-          pad_jac(P, rb[0], rb[1], side == 0 ? axis_l : axis_r, j);
-          for (int d = 0; d < 4; ++d) dqd[d] -= j[d] * idm[d];
-          dqd[4 + side] -= j[4] * idm[4 + side];
+          pad_jac(dirs[di], rbx, rby, axis, j);
+          wdir[di] = fmaxf(im + sym_quad(iI, cross(rw.r, dirs[di])) + j[0] * j[0] * idm[0] +
+                               j[1] * j[1] * idm[1] + j[2] * j[2] * idm[2] +
+                               j[3] * j[3] * idm[3] + j[4] * j[4] * idf,
+                           1e-9f);
         }
+        rw.wn = wdir[0];
+        rw.wt1 = wdir[1];
+        rw.wt2 = wdir[2];
+        st_row(pd, NPD, c, rw);
+        pd[RBX * NPD + c] = rbx;
+        pd[RBY * NPD + c] = rby;
+        const V3 P = warm_row(pd, NPD, c, rw, first, ws);
+        put_contrib(scr, NPD, 0, c, P, im, iI, rw.r);
+        float j[5];
+        pad_jac(P, rbx, rby, axis, j);
+#pragma unroll
+        for (int d = 0; d < 4; ++d) dq[d] -= j[d] * idm[d];
+        if (side == 0)
+          dq[4] -= j[4] * idm[4];
+        else
+          dq[5] -= j[4] * idm[5];
       }
-      for (int c = 0; c < NOO; ++c) {
-        const Row& rw = oo[c];
-        float cont = first ? 0.f : clampf(dot(noo[c], rw.n), 0.f, 1.f);
-        float g = ws * rw.act * cont * cont;
-        for (int l = 0; l < 3; ++l) loo[c][l] = first ? 0.f : loo[c][l] * g;
-        V3 P = scl(add(add(scl(rw.n, loo[c][0]), scl(rw.t1, loo[c][1])), scl(rw.t2, loo[c][2])), rw.act);
-        const int p = c / (SC * SC);
-        const int i = pi_[p], j = pj_[p];
-        dV[i] = add(dV[i], scl(P, invm[i]));
-        dW[i] = add(dW[i], sym_apply(iI[i], cross(rw.r, P)));
-        dV[j] = sub(dV[j], scl(P, invm[j]));
-        dW[j] = sub(dW[j], sym_apply(iI[j], cross(oorb[c], P)));
+      env_sync();
+      // active pad rows per body and side; the aligned pair's cross mass
+      for (int k = tid; k < K; k += THREADS_PER_ENV) {
+        float nl = 0.f, nr = 0.f;
+        for (int s = 0; s < S; ++s) {
+          nl += pd[ACT * NPD + k * S + s];
+          nr += pd[ACT * NPD + KS + k * S + s];
+        }
+        bd[CNTL * K + k] = nl;
+        bd[CNTR * K + k] = nr;
       }
-      for (int k = 0; k < K; ++k) {
-        V[k] = add(V[k], dV[k]);
-        W[k] = add(W[k], dW[k]);
+      for (int slot = tid; slot < KS; slot += THREADS_PER_ENV) {
+        const int k = slot / S, cr = KS + slot;
+        const V3 nL = ld3(pd, NPD, NX, slot), nR = ld3(pd, NPD, NX, cr);
+        const V3 rL = ld3(pd, NPD, RX, slot), rR = ld3(pd, NPD, RX, cr);
+        float jl[5], jr[5];
+        pad_jac(nL, pd[RBX * NPD + slot], pd[RBY * NPD + slot], axis_l, jl);
+        pad_jac(nR, pd[RBX * NPD + cr], pd[RBY * NPD + cr], axis_r, jr);
+        const float w_obj = bd[INVM * K + k] * dot(nL, nR) +
+                            dot(cross(rL, nL), sym_apply(ld_sym(bd, K, k), cross(rR, nR)));
+        const float w_dof = jl[0] * idm[0] * jr[0] + jl[1] * idm[1] * jr[1] +
+                            jl[2] * idm[2] * jr[2] + jl[3] * idm[3] * jr[3];
+        wlr[slot] = (w_obj + w_dof) * (pd[ACT * NPD + slot] * pd[ACT * NPD + cr]);
       }
-      for (int d = 0; d < 6; ++d) qd[d] += dqd[d];
+      if (!first) {
+        reduce_blocks(bd, scr, NPD, 2, L, tid);
+        env_sum6(dq, red, tid);
+#pragma unroll
+        for (int d = 0; d < 6; ++d) qd[d] += dq[d];
+      }
+      env_sync();
+    }
 
-      // ---- 6. solver iterations
-      float lam_m[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    // object pairs (coarse spheres): rows (pair, a, b)
+    if (NOO > 0) {
+      const int q2 = SC * SC, nc = K * SC;
+      for (int c = tid; c < NOO; c += THREADS_PER_ENV) {
+        int p = c / q2, i = 0;
+        while (p >= K - 1 - i) {
+          p -= K - 1 - i;
+          ++i;
+        }
+        const int j = i + 1 + p;
+        const int a = (c % q2) / SC, b = c % SC;
+        const V3 ca = ld3(crs, nc, CWX, i * SC + a), cb = ld3(crs, nc, CWX, j * SC + b);
+        const float ra = crs[LRAD * nc + i * SC + a], rbd = crs[LRAD * nc + j * SC + b];
+        const V3 d = sub(ca, cb);
+        const float dist = sqrtf(dot(d, d));
+        const float rsum = ra + rbd;
+        const float pen = rsum - dist;
+        const V3 n = scl(d, 1.f / fmaxf(dist, 1e-9f));
+        const V3 pt = add(cb, scl(n, rbd + 0.5f * (dist - rsum)));
+        const bool m = ra > 0.f && rbd > 0.f && bd[ALIVE * K + i] > 0.5f &&
+                       bd[ALIVE * K + j] > 0.5f;
+        const Sym iIi = ld_sym(bd, K, i), iIj = ld_sym(bd, K, j);
+        const float imi = bd[INVM * K + i], imj = bd[INVM * K + j];
+        Row rw;
+        rw.n = n;
+        rw.r = sub(pt, ld3(bd, K, PX, i));
+        const V3 rb = sub(pt, ld3(bd, K, PX, j));
+        rw.act = (m && pen > 0.f) ? 1.f : 0.f;
+        rw.bias = fminf(bias_coef * fmaxf(pen - sp.slop, 0.f), sp.max_bias_velocity);
+        tangent_basis(n, rw.t1, rw.t2);
+        rw.wn = fmaxf(imi + sym_quad(iIi, cross(rw.r, n)) + imj + sym_quad(iIj, cross(rb, n)),
+                      1e-9f);
+        if (sp.oo_pm_tangent) {
+          rw.wt1 = rw.wt2 = fmaxf(imi + imj, 1e-9f);
+        } else {
+          rw.wt1 = fmaxf(imi + sym_quad(iIi, cross(rw.r, rw.t1)) + imj +
+                             sym_quad(iIj, cross(rb, rw.t1)),
+                         1e-9f);
+          rw.wt2 = fmaxf(imi + sym_quad(iIi, cross(rw.r, rw.t2)) + imj +
+                             sym_quad(iIj, cross(rb, rw.t2)),
+                         1e-9f);
+        }
+        st_row(oo, NOO, c, rw);
+        st3(oo, NOO, OBX, c, rb);
+        const V3 P = warm_row(oo, NOO, c, rw, first, ws);
+        put_contrib(scr, NOO, 0, c, P, imi, iIi, rw.r);
+        put_contrib(scr, NOO, 6, c, P, imj, iIj, rb);
+      }
+      env_sync();
+      if (!first) {
+        reduce_pairs(bd, scr, L, tid);
+        env_sync();
+      }
+    }
+
+    // ---- 6. solver iterations
+    float lam_m[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
 #pragma unroll 1
-      for (int it = 0; it < sp.solver_iterations; ++it) {
-        // statics (Jacobi within the category)
-        for (int k = 0; k < K; ++k) dV[k] = dW[k] = mk(0.f, 0.f, 0.f);
-        for (int c = 0; c < NS * KS; ++c) {
-          const Row& rw = st[c];
-          const int k = (c % KS) / S;
-          V3 v = add(V[k], cross(W[k], rw.r));
-          float dl_n = (rw.bias - dot(v, rw.n)) / rw.wn * omega;
-          float ln = fmaxf(lst[c][0] + dl_n, 0.f);
-          dl_n = ln - lst[c][0];
-          float lt1 = lst[c][1] - dot(v, rw.t1) / rw.wt1 * omega;
-          float lt2 = lst[c][2] - dot(v, rw.t2) / rw.wt2 * omega;
-          float tn = sqrtf(lt1 * lt1 + lt2 * lt2);
-          float sc = fminf(1.f, mu * ln / fmaxf(tn, 1e-9f));
-          lt1 *= sc;
-          lt2 *= sc;
-          V3 P = add(add(scl(rw.n, dl_n), scl(rw.t1, lt1 - lst[c][1])), scl(rw.t2, lt2 - lst[c][2]));
-          P = scl(P, rw.act);
-          lst[c][0] = ln;
-          lst[c][1] = lt1;
-          lst[c][2] = lt2;
-          dV[k] = add(dV[k], scl(P, invm[k]));
-          dW[k] = add(dW[k], sym_apply(iI[k], cross(rw.r, P)));
-        }
-        for (int k = 0; k < K; ++k) {
-          V[k] = add(V[k], dV[k]);
-          W[k] = add(W[k], dW[k]);
-        }
+    for (int it = 0; it < sp.solver_iterations; ++it) {
+      // statics
+      for (int c = tid; c < NST; c += THREADS_PER_ENV) {
+        const Row rw = ld_row(st, NST, c);
+        const int k = (c % KS) / S;
+        const V3 v = add(ld3(bd, K, VX, k), cross(ld3(bd, K, WX, k), rw.r));
+        const V3 P = solve_row(st, NST, c, rw, v, mu, omega);
+        put_contrib(scr, NST, 0, c, P, bd[INVM * K + k], ld_sym(bd, K, k), rw.r);
+      }
+      env_sync();
+      reduce_blocks(bd, scr, NST, NS, L, tid);
+      env_sync();
 
 #pragma unroll 1
-        for (int pass = 0; pass < sp.pad_inner; ++pass) {
-          // motor rows: exact 1-D clamped projection per DOF
-          for (int d = 0; d < 6; ++d) {
-            float ln = clampf(lam_m[d] + (v_des[d] - qd[d]) * sp.dof_mass[d], -cap[d], cap[d]);
-            qd[d] += (ln - lam_m[d]) / sp.dof_mass[d];
-            lam_m[d] = ln;
-          }
-          // coupled 2x2 normal solve of the opposing pads (physics.py:435)
-          for (int k = 0; k < K; ++k) dV[k] = dW[k] = mk(0.f, 0.f, 0.f);
-          for (int d = 0; d < 6; ++d) dqd[d] = 0.f;
-          for (int c = 0; c < KS; ++c) {
-            const int k = c / S;
-            const Row& L = pl[c];
-            const Row& Rr = pr[c];
+      for (int pass = 0; pass < sp.pad_inner; ++pass) {
+        // motor rows: exact 1-D clamped projection per DOF (every thread)
+#pragma unroll
+        for (int d = 0; d < 6; ++d) {
+          const float ln = clampf(lam_m[d] + (v_des[d] - qd[d]) * sp.dof_mass[d], -cap[d], cap[d]);
+          qd[d] += (ln - lam_m[d]) / sp.dof_mass[d];
+          lam_m[d] = ln;
+        }
+        // coupled 2x2 normal solve of the opposing pads (physics.py:435), one slot per thread
+        {
+          float dq[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+          for (int c = tid; c < KS; c += THREADS_PER_ENV) {
+            const int k = c / S, cr = KS + c;
+            const V3 nL = ld3(pd, NPD, NX, c), nR = ld3(pd, NPD, NX, cr);
+            const V3 rL = ld3(pd, NPD, RX, c), rR = ld3(pd, NPD, RX, cr);
+            const float rlx = pd[RBX * NPD + c], rly = pd[RBY * NPD + c];
+            const float rrx = pd[RBX * NPD + cr], rry = pd[RBY * NPD + cr];
+            const float actL = pd[ACT * NPD + c], actR = pd[ACT * NPD + cr];
             float jl[5], jr[5];
-            pad_jac(L.n, plrb[c][0], plrb[c][1], axis_l, jl);
-            pad_jac(Rr.n, prrb[c][0], prrb[c][1], axis_r, jr);
-            float vL = dot(add(V[k], cross(W[k], L.r)), L.n) -
-                       (jl[0] * qd[0] + jl[1] * qd[1] + jl[2] * qd[2] + jl[3] * qd[3] + jl[4] * qd[4]);
-            float vR = dot(add(V[k], cross(W[k], Rr.r)), Rr.n) -
-                       (jr[0] * qd[0] + jr[1] * qd[1] + jr[2] * qd[2] + jr[3] * qd[3] + jr[4] * qd[5]);
-            const float w_ll = L.wn, w_rr = Rr.wn, w_lr = padwlr[c];
-            const float bL = sp.pad_bias_scale * L.bias - vL;
-            const float bR = sp.pad_bias_scale * Rr.bias - vR;
+            pad_jac(nL, rlx, rly, axis_l, jl);
+            pad_jac(nR, rrx, rry, axis_r, jr);
+            const V3 Vk = ld3(bd, K, VX, k), Wk = ld3(bd, K, WX, k);
+            const float vL = dot(add(Vk, cross(Wk, rL)), nL) -
+                             (jl[0] * qd[0] + jl[1] * qd[1] + jl[2] * qd[2] + jl[3] * qd[3] +
+                              jl[4] * qd[4]);
+            const float vR = dot(add(Vk, cross(Wk, rR)), nR) -
+                             (jr[0] * qd[0] + jr[1] * qd[1] + jr[2] * qd[2] + jr[3] * qd[3] +
+                              jr[4] * qd[5]);
+            const float w_ll = pd[WN * NPD + c], w_rr = pd[WN * NPD + cr], w_lr = wlr[c];
+            const float bL = sp.pad_bias_scale * pd[BIAS * NPD + c] - vL;
+            const float bR = sp.pad_bias_scale * pd[BIAS * NPD + cr] - vR;
             const float det = fmaxf(w_ll * w_rr - w_lr * w_lr, 1e-4f * w_ll * w_rr);
-            const float lLn = lpl[c][0], lRn = lpr[c][0];
+            const float lLn = pd[L0 * NPD + c], lRn = pd[L0 * NPD + cr];
             const float dA_L = (w_rr * bL - w_lr * bR) / det;
             const float dA_R = (w_ll * bR - w_lr * bL) / det;
             const float lamA_L = lLn + dA_L, lamA_R = lRn + dA_R;
@@ -521,182 +796,181 @@ __global__ void solver_kernel(SolverParams sp, const float* __restrict__ gq,
             const bool okC = lamC_L >= 0.f && (w_lr * dC_L + w_rr * dC_R - bR >= 0.f);
             float newL = okA ? lamA_L : (okB ? 0.f : (okC ? lamC_L : 0.f));
             float newR = okA ? lamA_R : (okB ? lamB_R : 0.f);
-            newL = lLn + (newL - lLn) / fmaxf(cntL[k], 1.f);
-            newR = lRn + (newR - lRn) / fmaxf(cntR[k], 1.f);
-            lpl[c][0] = newL;
-            lpr[c][0] = newR;
-            const V3 PL = scl(L.n, (newL - lLn) * L.act);
-            const V3 PR = scl(Rr.n, (newR - lRn) * Rr.act);
-            dV[k] = add(dV[k], scl(add(PL, PR), invm[k]));
-            dW[k] = add(dW[k], sym_apply(iI[k], add(cross(L.r, PL), cross(Rr.r, PR))));
+            newL = lLn + (newL - lLn) / fmaxf(bd[CNTL * K + k], 1.f);
+            newR = lRn + (newR - lRn) / fmaxf(bd[CNTR * K + k], 1.f);
+            pd[L0 * NPD + c] = newL;
+            pd[L0 * NPD + cr] = newR;
+            const V3 PL = scl(nL, (newL - lLn) * actL);
+            const V3 PR = scl(nR, (newR - lRn) * actR);
+            st3(scr, KS, 0, c, scl(add(PL, PR), bd[INVM * K + k]));
+            st3(scr, KS, 3, c, sym_apply(ld_sym(bd, K, k), add(cross(rL, PL), cross(rR, PR))));
             float gl[5], gr[5];
-            pad_jac(PL, plrb[c][0], plrb[c][1], axis_l, gl);
-            pad_jac(PR, prrb[c][0], prrb[c][1], axis_r, gr);
-            for (int d = 0; d < 4; ++d) dqd[d] -= (gl[d] + gr[d]) * idm[d];
-            dqd[4] -= gl[4] * idm[4];
-            dqd[5] -= gr[4] * idm[5];
+            pad_jac(PL, rlx, rly, axis_l, gl);
+            pad_jac(PR, rrx, rry, axis_r, gr);
+#pragma unroll
+            for (int d = 0; d < 4; ++d) dq[d] -= (gl[d] + gr[d]) * idm[d];
+            dq[4] -= gl[4] * idm[4];
+            dq[5] -= gr[4] * idm[5];
           }
-          for (int k = 0; k < K; ++k) {
-            V[k] = add(V[k], dV[k]);
-            W[k] = add(W[k], dW[k]);
-          }
-          for (int d = 0; d < 6; ++d) qd[d] += dqd[d];
-          // pad friction: left, then right (physics.py:505-510)
-          for (int side = 0; side < 2; ++side) {
-            for (int k = 0; k < K; ++k) dV[k] = dW[k] = mk(0.f, 0.f, 0.f);
-            for (int d = 0; d < 6; ++d) dqd[d] = 0.f;
-            const V3 axis = side == 0 ? axis_l : axis_r;
-            const int fd = side == 0 ? 4 : 5;
-            for (int c = 0; c < KS; ++c) {
-              const int k = c / S;
-              const Row& rw = side == 0 ? pl[c] : pr[c];
-              float* lam = side == 0 ? lpl[c] : lpr[c];
-              const float* rb = side == 0 ? plrb[c] : prrb[c];
-              float j1[5], j2[5];
-              pad_jac(rw.t1, rb[0], rb[1], axis, j1);
-              pad_jac(rw.t2, rb[0], rb[1], axis, j2);
-              V3 v = add(V[k], cross(W[k], rw.r));
-              float vt1 = dot(v, rw.t1) -
-                          (j1[0] * qd[0] + j1[1] * qd[1] + j1[2] * qd[2] + j1[3] * qd[3] + j1[4] * qd[fd]);
-              float vt2 = dot(v, rw.t2) -
-                          (j2[0] * qd[0] + j2[1] * qd[1] + j2[2] * qd[2] + j2[3] * qd[3] + j2[4] * qd[fd]);
-              float lt1 = lam[1] - vt1 / rw.wt1 * sp.pad_omega;
-              float lt2 = lam[2] - vt2 / rw.wt2 * sp.pad_omega;
-              float tn = sqrtf(lt1 * lt1 + lt2 * lt2);
-              float sc = fminf(1.f, mu * lam[0] / fmaxf(tn, 1e-9f));
-              lt1 *= sc;
-              lt2 *= sc;
-              const float d1 = (lt1 - lam[1]) * rw.act, d2 = (lt2 - lam[2]) * rw.act;
-              lam[1] = lt1;
-              lam[2] = lt2;
-              V3 P = add(scl(rw.t1, d1), scl(rw.t2, d2));
-              dV[k] = add(dV[k], scl(P, invm[k]));
-              dW[k] = add(dW[k], sym_apply(iI[k], cross(rw.r, P)));
-              float gj[5];
-              pad_jac(P, rb[0], rb[1], axis, gj);
-              for (int d = 0; d < 4; ++d) dqd[d] -= gj[d] * idm[d];
-              dqd[fd] -= gj[4] * idm[fd];
-            }
-            for (int k = 0; k < K; ++k) {
-              V[k] = add(V[k], dV[k]);
-              W[k] = add(W[k], dW[k]);
-            }
-            for (int d = 0; d < 6; ++d) qd[d] += dqd[d];
-          }
+          env_sync();
+          reduce_blocks(bd, scr, KS, 1, L, tid);
+          env_sum6(dq, red, tid);
+#pragma unroll
+          for (int d = 0; d < 6; ++d) qd[d] += dq[d];
+          env_sync();
         }
-
-        // object-object rows every oo_stride iterations (always on the first)
-        if (it % sp.oo_stride == 0) {
-          for (int k = 0; k < K; ++k) dV[k] = dW[k] = mk(0.f, 0.f, 0.f);
-          for (int c = 0; c < NOO; ++c) {
-            const Row& rw = oo[c];
-            const int p = c / (SC * SC);
-            const int i = pi_[p], j = pj_[p];
-            V3 v = sub(add(V[i], cross(W[i], rw.r)), add(V[j], cross(W[j], oorb[c])));
-            float dl_n = (rw.bias - dot(v, rw.n)) / rw.wn * omega;
-            float ln = fmaxf(loo[c][0] + dl_n, 0.f);
-            dl_n = ln - loo[c][0];
-            float lt1 = loo[c][1] - dot(v, rw.t1) / rw.wt1 * omega;
-            float lt2 = loo[c][2] - dot(v, rw.t2) / rw.wt2 * omega;
-            float tn = sqrtf(lt1 * lt1 + lt2 * lt2);
-            float sc = fminf(1.f, mu * ln / fmaxf(tn, 1e-9f));
+        // pad friction: left, then right (physics.py:505-510)
+#pragma unroll
+        for (int side = 0; side < 2; ++side) {
+          const V3 axis = side == 0 ? axis_l : axis_r;
+          const float qf = side == 0 ? qd[4] : qd[5];
+          float dq[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+          for (int c = tid; c < KS; c += THREADS_PER_ENV) {
+            const int k = c / S, i = side * KS + c;
+            const Row rw = ld_row(pd, NPD, i);
+            const float rbx = pd[RBX * NPD + i], rby = pd[RBY * NPD + i];
+            float j1[5], j2[5];
+            pad_jac(rw.t1, rbx, rby, axis, j1);
+            pad_jac(rw.t2, rbx, rby, axis, j2);
+            const V3 v = add(ld3(bd, K, VX, k), cross(ld3(bd, K, WX, k), rw.r));
+            const float vt1 = dot(v, rw.t1) - (j1[0] * qd[0] + j1[1] * qd[1] + j1[2] * qd[2] +
+                                               j1[3] * qd[3] + j1[4] * qf);
+            const float vt2 = dot(v, rw.t2) - (j2[0] * qd[0] + j2[1] * qd[1] + j2[2] * qd[2] +
+                                               j2[3] * qd[3] + j2[4] * qf);
+            const float l0 = pd[L0 * NPD + i], l1 = pd[L1 * NPD + i], l2 = pd[L2 * NPD + i];
+            float lt1 = l1 - vt1 / rw.wt1 * sp.pad_omega;
+            float lt2 = l2 - vt2 / rw.wt2 * sp.pad_omega;
+            const float tn = sqrtf(lt1 * lt1 + lt2 * lt2);
+            const float sc = fminf(1.f, mu * l0 / fmaxf(tn, 1e-9f));
             lt1 *= sc;
             lt2 *= sc;
-            V3 P = add(add(scl(rw.n, dl_n), scl(rw.t1, lt1 - loo[c][1])), scl(rw.t2, lt2 - loo[c][2]));
-            P = scl(P, rw.act);
-            loo[c][0] = ln;
-            loo[c][1] = lt1;
-            loo[c][2] = lt2;
-            dV[i] = add(dV[i], scl(P, invm[i]));
-            dW[i] = add(dW[i], sym_apply(iI[i], cross(rw.r, P)));
-            dV[j] = sub(dV[j], scl(P, invm[j]));
-            dW[j] = sub(dW[j], sym_apply(iI[j], cross(oorb[c], P)));
+            const float d1 = (lt1 - l1) * rw.act, d2 = (lt2 - l2) * rw.act;
+            pd[L1 * NPD + i] = lt1;
+            pd[L2 * NPD + i] = lt2;
+            const V3 P = add(scl(rw.t1, d1), scl(rw.t2, d2));
+            put_contrib(scr, KS, 0, c, P, bd[INVM * K + k], ld_sym(bd, K, k), rw.r);
+            float gj[5];
+            pad_jac(P, rbx, rby, axis, gj);
+#pragma unroll
+            for (int d = 0; d < 4; ++d) dq[d] -= gj[d] * idm[d];
+            dq[4 + side] -= gj[4] * idm[4 + side];
           }
-          for (int k = 0; k < K; ++k) {
-            V[k] = add(V[k], dV[k]);
-            W[k] = add(W[k], dW[k]);
-          }
+          env_sync();
+          reduce_blocks(bd, scr, KS, 1, L, tid);
+          env_sum6(dq, red, tid);
+#pragma unroll
+          for (int d = 0; d < 6; ++d) qd[d] += dq[d];
+          env_sync();
         }
       }
 
-      // ---- 7. pinch and rolling damping
-      if (sp.pinch_damping > 0.f) {
-        for (int k = 0; k < K; ++k) {
-          if (cntL[k] > 0.f && cntR[k] > 0.f) {
-            W[k] = mk(W[k].x - sp.pinch_damping * W[k].x, W[k].y - sp.pinch_damping * W[k].y,
-                      W[k].z - sp.pinch_damping * (W[k].z - qd[3]));
+      // object-object rows every oo_stride iterations (always on the first)
+      if (NOO > 0 && it % sp.oo_stride == 0) {
+        for (int c = tid; c < NOO; c += THREADS_PER_ENV) {
+          int p = c / (SC * SC), i = 0;
+          while (p >= K - 1 - i) {
+            p -= K - 1 - i;
+            ++i;
           }
+          const int j = i + 1 + p;
+          const Row rw = ld_row(oo, NOO, c);
+          const V3 rb = ld3(oo, NOO, OBX, c);
+          const V3 v = sub(add(ld3(bd, K, VX, i), cross(ld3(bd, K, WX, i), rw.r)),
+                           add(ld3(bd, K, VX, j), cross(ld3(bd, K, WX, j), rb)));
+          const V3 P = solve_row(oo, NOO, c, rw, v, mu, omega);
+          put_contrib(scr, NOO, 0, c, P, bd[INVM * K + i], ld_sym(bd, K, i), rw.r);
+          put_contrib(scr, NOO, 6, c, P, bd[INVM * K + j], ld_sym(bd, K, j), rb);
         }
+        env_sync();
+        reduce_pairs(bd, scr, L, tid);
+        env_sync();
       }
+    }
+
+    // ---- 7. pinch and rolling damping, then integration, one body per thread
+    for (int k = tid; k < K; k += THREADS_PER_ENV) {
+      V3 W = ld3(bd, K, WX, k);
+      if (sp.pinch_damping > 0.f && bd[CNTL * K + k] > 0.f && bd[CNTR * K + k] > 0.f)
+        W = mk(W.x - sp.pinch_damping * W.x, W.y - sp.pinch_damping * W.y,
+               W.z - sp.pinch_damping * (W.z - qd[3]));
       if (sp.rolling_damping > 0.f) {
-        for (int k = 0; k < K; ++k) {
-          bool touch = false;
-          for (int w = 0; w < NS; ++w)
-            for (int s = 0; s < S; ++s) touch = touch || st[w * KS + k * S + s].act > 0.f;
-          if (touch) W[k] = scl(W[k], 1.f - sp.rolling_damping);
-        }
+        bool touch = false;
+        for (int w = 0; w < NS; ++w)
+          for (int s = 0; s < S; ++s) touch = touch || st[ACT * NST + w * KS + k * S + s] > 0.f;
+        if (touch) W = scl(W, 1.f - sp.rolling_damping);
       }
-
-      // remember this substep's normals for the next warm start
-      for (int c = 0; c < NS * KS; ++c) nst[c] = st[c].n;
-      for (int c = 0; c < KS; ++c) {
-        npl[c] = pl[c].n;
-        npr[c] = pr[c].n;
-      }
-      for (int c = 0; c < NOO; ++c) noo[c] = oo[c].n;
-
-      // ---- 8. integrate
-      for (int k = 0; k < K; ++k) {
-        const float al = alive[k];
-        V[k] = mk(clampf(V[k].x, -4.f, 4.f) * al, clampf(V[k].y, -4.f, 4.f) * al,
-                  clampf(V[k].z, -4.f, 4.f) * al);
-        W[k] = mk(clampf(W[k].x, -50.f, 50.f) * al, clampf(W[k].y, -50.f, 50.f) * al,
-                  clampf(W[k].z, -50.f, 50.f) * al);
-        pos[k] = add(pos[k], scl(V[k], dt));
-        const float ox = W[k].x, oy = W[k].y, oz = W[k].z;
-        const float qx = quat[k][0], qy = quat[k][1], qz = quat[k][2], qw = quat[k][3];
-        float nq[4] = {qx + 0.5f * dt * (qw * ox + (oy * qz - oz * qy)),
-                       qy + 0.5f * dt * (qw * oy + (oz * qx - ox * qz)),
-                       qz + 0.5f * dt * (qw * oz + (ox * qy - oy * qx)),
-                       qw + 0.5f * dt * (-(ox * qx + oy * qy + oz * qz))};
-        float qn = fmaxf(sqrtf(nq[0] * nq[0] + nq[1] * nq[1] + nq[2] * nq[2] + nq[3] * nq[3]), 1e-9f);
-        for (int c = 0; c < 4; ++c) quat[k][c] = nq[c] / qn;
-      }
-      for (int d = 0; d < 6; ++d) q[d] += qd[d] * dt;
-      for (int d = 4; d < 6; ++d) {
-        float f = clampf(q[d], FINGER_LIMIT_LOW, FINGER_LIMIT_HIGH);
-        if (f != q[d]) qd[d] = 0.f;
-        q[d] = f;
-      }
-      if (q[2] < floor_q2) {
-        q[2] = floor_q2;
-        qd[2] = fmaxf(qd[2], 0.f);
-      }
+      const float al = bd[ALIVE * K + k];
+      V3 V = ld3(bd, K, VX, k);
+      V = mk(clampf(V.x, -4.f, 4.f) * al, clampf(V.y, -4.f, 4.f) * al, clampf(V.z, -4.f, 4.f) * al);
+      W = mk(clampf(W.x, -50.f, 50.f) * al, clampf(W.y, -50.f, 50.f) * al,
+             clampf(W.z, -50.f, 50.f) * al);
+      st3(bd, K, VX, k, V);
+      st3(bd, K, WX, k, W);
+      st3(bd, K, PX, k, add(ld3(bd, K, PX, k), scl(V, dt)));
+      const float ox = W.x, oy = W.y, oz = W.z;
+      const float qx = bd[QX * K + k], qy = bd[QY * K + k], qz = bd[QZ * K + k],
+                  qw = bd[QW * K + k];
+      float nq[4] = {qx + 0.5f * dt * (qw * ox + (oy * qz - oz * qy)),
+                     qy + 0.5f * dt * (qw * oy + (oz * qx - ox * qz)),
+                     qz + 0.5f * dt * (qw * oz + (ox * qy - oy * qx)),
+                     qw + 0.5f * dt * (-(ox * qx + oy * qy + oz * qz))};
+      const float qn =
+          fmaxf(sqrtf(nq[0] * nq[0] + nq[1] * nq[1] + nq[2] * nq[2] + nq[3] * nq[3]), 1e-9f);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) bd[(QX + c) * K + k] = nq[c] / qn;
     }
+    // gripper (every thread)
+#pragma unroll
+    for (int d = 0; d < 6; ++d) q[d] += qd[d] * dt;
+#pragma unroll
+    for (int d = 4; d < 6; ++d) {
+      const float f = clampf(q[d], FINGER_LIMIT_LOW, FINGER_LIMIT_HIGH);
+      if (f != q[d]) qd[d] = 0.f;
+      q[d] = f;
+    }
+    if (q[2] < floor_q2) {
+      q[2] = floor_q2;
+      qd[2] = fmaxf(qd[2], 0.f);
+    }
+    env_sync();
+  }
 
-    for (int d = 0; d < 6; ++d) {
-      q_out[e * 6 + d] = q[d];
-      qd_out[e * 6 + d] = qd[d];
-    }
-    for (int k = 0; k < K; ++k) {
-      const int o = e * K + k;
-      pos_out[o * 3] = pos[k].x;
-      pos_out[o * 3 + 1] = pos[k].y;
-      pos_out[o * 3 + 2] = pos[k].z;
-      lin_out[o * 3] = V[k].x;
-      lin_out[o * 3 + 1] = V[k].y;
-      lin_out[o * 3 + 2] = V[k].z;
-      ang_out[o * 3] = W[k].x;
-      ang_out[o * 3 + 1] = W[k].y;
-      ang_out[o * 3 + 2] = W[k].z;
-      for (int c = 0; c < 4; ++c) quat_out[o * 4 + c] = quat[k][c];
-    }
+  if (tid < 6) {
+    float qv = q[0], qdv = qd[0];
+#pragma unroll
+    for (int d = 1; d < 6; ++d)
+      if (tid == d) {
+        qv = q[d];
+        qdv = qd[d];
+      }
+    q_out[e * 6 + tid] = qv;
+    qd_out[e * 6 + tid] = qdv;
+  }
+  for (int k = tid; k < K; k += THREADS_PER_ENV) {
+    const int o = e * K + k;
+    const V3 p = ld3(bd, K, PX, k), V = ld3(bd, K, VX, k), W = ld3(bd, K, WX, k);
+    pos_out[o * 3] = p.x;
+    pos_out[o * 3 + 1] = p.y;
+    pos_out[o * 3 + 2] = p.z;
+    lin_out[o * 3] = V.x;
+    lin_out[o * 3 + 1] = V.y;
+    lin_out[o * 3 + 2] = V.z;
+    ang_out[o * 3] = W.x;
+    ang_out[o * 3 + 1] = W.y;
+    ang_out[o * 3 + 2] = W.z;
+    for (int c = 0; c < 4; ++c) quat_out[o * 4 + c] = bd[(QX + c) * K + k];
   }
 }
 
-// Host entry: fp holds NFP floats, ip holds NIP ints (host memory), in the
-// order of SolverParams. Launches on `stream` and returns the launch's
-// cudaError_t (0 on success); it does not synchronise.
+// Host entry: fp holds the float parameters in the order of SolverParams;
+// ip holds B, K, S, SC, n_substeps, solver_iterations, pad_inner,
+// oo_stride, has_tray, oo_pm_tangent, then the launch shape that
+// ops/solver_cuda.py `launch_config` computed: threads per block and
+// dynamic shared bytes per block (one env per block). The entry checks the
+// shape against its own layout and the device's limit and returns an error
+// instead of launching what the device would refuse. Launches on `stream`
+// and returns the launch's cudaError_t (0 on success); it does not
+// synchronise.
 extern "C" int solver_run(const float* fp, const int* ip, const float* gq, const float* gqd,
                           const float* gtarget, const float* gftgt, const float* opos,
                           const float* oquat, const float* olin, const float* oang,
@@ -736,12 +1010,23 @@ extern "C" int solver_run(const float* fp, const int* ip, const float* gq, const
   sp.oo_stride = ip[7] < 1 ? 1 : ip[7];
   sp.has_tray = ip[8];
   sp.oo_pm_tangent = ip[9];
+  const int threads = ip[10], shared_bytes = ip[11];
   if (sp.K < 1 || sp.K > MAXK || sp.S < 1 || sp.S > MAXS || sp.SC < 1 || sp.SC > MAXSC)
     return (int)cudaErrorInvalidValue;
+  const Layout L = solver_layout(sp.K, sp.S, sp.SC, sp.has_tray);
+  if (threads != THREADS_PER_ENV || shared_bytes != (int)(L.total * sizeof(float)))
+    return (int)cudaErrorInvalidValue;
   if (sp.B <= 0) return 0;
-  const int threads = 32;
-  const int blocks = (sp.B + threads - 1) / threads;
-  solver_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (shared_bytes > optin) return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(solver_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             shared_bytes);
+  if (err != cudaSuccess) return (int)err;
+  solver_kernel<<<sp.B, threads, shared_bytes, (cudaStream_t)stream>>>(
       sp, gq, gqd, gtarget, gftgt, opos, oquat, olin, oang, oalive, lcent, lrad, lcent2, lrad2,
       linvm, linvI, q_out, qd_out, pos_out, quat_out, lin_out, ang_out);
   return (int)cudaGetLastError();
@@ -751,5 +1036,20 @@ extern "C" int solver_limits(int* out) {
   out[0] = MAXK;
   out[1] = MAXS;
   out[2] = MAXSC;
+  return 0;
+}
+
+// The compiled kernel's resources: registers per thread, local (stack and
+// spill) bytes per thread, the most threads a block may have, static
+// shared bytes. The dynamic shared bytes depend on the launch's shape
+// (ops/solver_cuda.py `launch_config`).
+extern "C" int solver_attributes(int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, solver_kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = a.maxThreadsPerBlock;
+  out[3] = (int)a.sharedSizeBytes;
   return 0;
 }

@@ -35,6 +35,8 @@ from deep_rl_grasping_tpu_torch.sim.types import (
     SimState,
     _Replace,
     make_sim_params,
+    sim_state_from_numpy,
+    sim_state_to_numpy,
     tree_where,
 )
 from deep_rl_grasping_tpu_torch.utils import config as cfg_util
@@ -52,6 +54,36 @@ class EnvState(_Replace):
     cam_R: torch.Tensor           # (B,3,3) robot->camera rotation
     intrinsics: torch.Tensor      # (B,4) fx, fy, cx, cy
     lift_dist: torch.Tensor       # (B,)
+
+
+_ENV_FIELDS = ("episode_step", "episode_return", "status", "cam_t", "cam_R", "intrinsics",
+               "lift_dist")
+_REWARD_FIELDS = ("lifting", "start_height", "old_height")
+
+
+def env_state_to_numpy(state: EnvState) -> dict:
+    """A flat dict of numpy arrays keyed by the JAX package's field names
+    (`gripper.q`, `objects.pos`, `reward_state.lifting`, `cam_R`, ...)."""
+    out = sim_state_to_numpy(state.sim)
+    for f in _ENV_FIELDS:
+        out[f] = getattr(state, f).detach().cpu().numpy()
+    for f in _REWARD_FIELDS:
+        out[f"reward_state.{f}"] = getattr(state.reward_state, f).detach().cpu().numpy()
+    return out
+
+
+def env_state_from_numpy(arrays, device="cpu") -> EnvState:
+    """The inverse of `env_state_to_numpy`; also reads env states the JAX
+    package saved under the same names."""
+    t = lambda a, dtype: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    kinds = {"episode_step": torch.int32, "status": torch.int32}
+    return EnvState(
+        sim=sim_state_from_numpy(arrays, device),
+        reward_state=rew.RewardState(
+            lifting=t(arrays["reward_state.lifting"], torch.bool),
+            start_height=t(arrays["reward_state.start_height"], torch.float32),
+            old_height=t(arrays["reward_state.old_height"], torch.float32)),
+        **{f: t(arrays[f], kinds.get(f, torch.float32)) for f in _ENV_FIELDS})
 
 
 class GraspEnv:

@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels with plain `nvcc` and load them with ctypes.
 
-All `csrc/*.cu` sources compile in one `nvcc` call into one shared library
-with a plain C interface (no PyTorch headers, no PyTorch JIT extension loader,
-no ninja). The library lands in `_build/` inside the package (gitignored),
-named by a hash of the sources and flags, so later runs in the same
-checkout reuse it. Nothing here runs at import time: `library()` builds on
-first use.
+Each `csrc/*.cu` source compiles into its own shared library with a plain C
+interface (no PyTorch headers, no PyTorch JIT extension loader, no ninja);
+the `nvcc` calls for all sources start together and run in parallel. The
+libraries land in `_build/` inside the package (gitignored), each named by
+its source and a hash of that source and the flags, so later runs in the
+same checkout reuse them. Nothing here runs at import time: `library()`
+builds on first use.
 """
 
 from __future__ import annotations
@@ -33,10 +34,11 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # name: (argtypes, restype); pointers and the stream as c_void_p
-    "solver_run": ([_P] * 24, _I),
-    "solver_limits": ([_P], _I),
-    "raster_run": ([_P] * 14, _I),
+    # name: (source, argtypes, restype); pointers and the stream as c_void_p
+    "solver_run": ("solver.cu", [_P] * 24, _I),
+    "solver_limits": ("solver.cu", [_P], _I),
+    "solver_attributes": ("solver.cu", [_P], _I),
+    "raster_run": ("raster.cu", [_P] * 14, _I),
 }
 
 
@@ -64,63 +66,90 @@ def _sources():
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
-def source_hash():
+def source_hash(path):
+    """Hash of one source and the flags it is built with."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in _sources():
-        h.update(os.path.basename(path).encode())
-        with open(path, "rb") as f:
-            h.update(f.read())
+    h.update(os.path.basename(path).encode())
+    with open(path, "rb") as f:
+        h.update(f.read())
     return h.hexdigest()[:16]
 
 
-class KernelLibrary:
-    """The loaded shared library plus what its build reported."""
+def library_path(source):
+    stem = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, f"libgrasp_{stem}_{source_hash(source)}.so")
 
-    def __init__(self, path, reused, seconds, log):
-        self.path = path
+
+class KernelLibrary:
+    """The loaded shared libraries (one per source) plus what their builds
+    reported: `paths` and `logs` by source file name, the wall seconds of
+    the parallel build, and whether every library was already built."""
+
+    def __init__(self, paths, reused, seconds, logs):
+        self.paths = paths
         self.reused = reused
         self.build_seconds = seconds
-        self.build_log = log
-        self.lib = ctypes.CDLL(path)
-        for name, (argtypes, restype) in _SIGNATURES.items():
-            fn = getattr(self.lib, name)
+        self.logs = logs
+        self.libs = {src: ctypes.CDLL(path) for src, path in paths.items()}
+        self._fns = {}
+        for name, (src, argtypes, restype) in _SIGNATURES.items():
+            fn = getattr(self.libs[src], name)
             fn.argtypes = argtypes
             fn.restype = restype
+            self._fns[name] = fn
 
     def __getattr__(self, name):
-        return getattr(self.lib, name)
+        fns = self.__dict__.get("_fns", {})
+        if name in fns:
+            return fns[name]
+        raise AttributeError(name)
 
 
 _lock = threading.Lock()
 _loaded: dict = {}
 
 
+def _build_all(missing):
+    """Start one nvcc per source, all at once; wait for all. Returns each
+    source's compiler output; raises if any build failed."""
+    nvcc = find_nvcc()
+    procs = {}
+    for src, path in missing.items():
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, src)]
+        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True), tmp, path, cmd)
+    logs, failed = {}, []
+    for src, (proc, tmp, path, cmd) in procs.items():
+        logs[src] = proc.communicate()[0]
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{logs[src]}")
+        else:
+            os.replace(tmp, path)
+    if failed:
+        raise BuildError("\n".join(failed))
+    return logs
+
+
 def library() -> KernelLibrary:
-    """Build (once per source hash) and load the kernel library. The first
-    call in a process hashes the sources; later calls return that library."""
+    """Build (once per source hash) and load the kernel libraries. The first
+    call in a process hashes the sources; later calls return those
+    libraries."""
     if "current" in _loaded:
         return _loaded["current"]
     with _lock:
         if "current" in _loaded:
             return _loaded["current"]
-        key = source_hash()
         os.makedirs(BUILD_DIR, exist_ok=True)
-        path = os.path.join(BUILD_DIR, f"libgrasp_kernels_{key}.so")
+        paths = {os.path.basename(src): library_path(src) for src in _sources()}
+        missing = {src: path for src, path in paths.items() if not os.path.isfile(path)}
         t0 = time.perf_counter()
-        log = ""
-        reused = os.path.isfile(path)
-        if not reused:
-            nvcc = find_nvcc()
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *_sources()]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise BuildError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-            os.replace(tmp, path)
-        lib = KernelLibrary(path, reused, time.perf_counter() - t0, log)
+        logs = {src: "" for src in paths}
+        if missing:
+            logs.update(_build_all(missing))
+        lib = KernelLibrary(paths, not missing, time.perf_counter() - t0, logs)
         _loaded["current"] = lib
         return lib
 

@@ -2,10 +2,12 @@
 
 Replaces deep_rl_grasping_tpu/ops/solver_pallas.py (the Pallas TPU kernel
 `_make_kernel` :107, driven by `run_batch` :1037 / `run_batched_sim`
-:1126). The kernel is `csrc/solver.cu` (one thread per env, the whole
-substep loop in one launch); its plain PyTorch version is
-`sim.physics.run`. On the H100 it is latency-bound, not bound by bytes or
-FLOPs (see the note at the top of csrc/solver.cu).
+:1126). The kernel is `csrc/solver.cu` (one block of two warps per env,
+the env's contact rows in shared memory, the whole substep loop in one
+launch); its plain PyTorch version is `sim.physics.run`. On the H100 it
+is bound by the chain of dependent solver phases, not by bytes or FLOPs
+(see the note at the top of csrc/solver.cu). `launch_config` gives the launch shape and the
+shared-memory size that the C entry checks and launches with.
 
 `run_batched_sim` takes the plain version only for a state whose tensors
 lie on the CPU. For CUDA tensors it launches the kernel or raises; it never
@@ -33,6 +35,45 @@ def _float_params(p: SimParams):
         *p.dof_mass, *p.dof_force, *p.dof_vmax,
     ]
     return np.asarray(vals, np.float32)
+
+
+# Shared-memory table widths in floats, as csrc/solver.cu lays them out:
+# fields per static row, pad row and object-pair row, per body, per sphere.
+ST_FIELDS, PD_FIELDS, OO_FIELDS, BODY_FIELDS, SPH_FIELDS = 23, 25, 26, 35, 7
+THREADS_PER_ENV = 64  # two warps; csrc/solver.cu THREADS_PER_ENV
+
+
+def launch_config(B: int, K: int, S: int, SC: int, has_tray: bool) -> dict:
+    """Launch shape of the solver kernel: one block of two warps per env,
+    with the env's rows, bodies, sphere tables and impulse scratch in
+    dynamic shared memory sized by the actual K, S, SC and tray walls
+    (csrc/solver.cu `solver_layout`)."""
+    NS = 5 if has_tray else 1
+    KS = K * S
+    NOO = K * (K - 1) // 2 * SC * SC
+    NST, NPD = NS * KS, 2 * KS
+    floats = (ST_FIELDS * NST + PD_FIELDS * NPD + OO_FIELDS * NOO + BODY_FIELDS * K
+              + SPH_FIELDS * KS + SPH_FIELDS * K * SC + KS
+              + max(6 * max(NST, NPD), 12 * NOO))
+    return {"blocks": int(B), "threads": THREADS_PER_ENV, "shared_bytes": 4 * floats}
+
+
+def int_params(B, K, S, SC, n_substeps, params: SimParams, threads, shared_bytes):
+    """The C entry's int block: shapes, schedule, flags, launch shape."""
+    return np.asarray([B, K, S, SC, int(n_substeps), int(params.solver_iterations),
+                       int(params.pad_inner_iterations), int(params.oo_pass_stride),
+                       int(bool(params.has_tray)), int(bool(params.oo_point_mass_tangent)),
+                       int(threads), int(shared_bytes)], np.int32)
+
+
+def kernel_attributes() -> dict:
+    """The compiled kernel's registers per thread, local (stack and spill)
+    bytes per thread, the most threads a block may have and its static
+    shared bytes (needs the card)."""
+    out = (ctypes.c_int * 4)()
+    build.check(build.library().solver_attributes(ctypes.addressof(out)), "solver_attributes")
+    return {"registers": out[0], "local_bytes": out[1], "max_threads_per_block": out[2],
+            "static_shared_bytes": out[3]}
 
 
 def run_batch(gq, gqd, gtarget, gftgt, opos, oquat, olin, oang, oalive,
@@ -66,10 +107,8 @@ def run_batch(gq, gqd, gtarget, gftgt, opos, oquat, olin, oang, oalive,
             torch.empty((B, K, 3), dtype=torch.float32, device=dev),
             torch.empty((B, K, 3), dtype=torch.float32, device=dev)]
     fp = _float_params(params)
-    ip = np.asarray([B, K, S, SC, int(n_substeps), int(params.solver_iterations),
-                     int(params.pad_inner_iterations), int(params.oo_pass_stride),
-                     int(bool(params.has_tray)), int(bool(params.oo_point_mass_tangent))],
-                    np.int32)
+    cfg = launch_config(B, K, S, SC, bool(params.has_tray))
+    ip = int_params(B, K, S, SC, n_substeps, params, cfg["threads"], cfg["shared_bytes"])
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.solver_run(

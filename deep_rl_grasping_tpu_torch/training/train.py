@@ -20,7 +20,9 @@ latest or `-b` best) or a committed SAC policy bundle (`--npz`) on the
 Both run on the card unless `--device cpu` is given; with no card and no
 `--device cpu` they stop with an error instead of falling back.
 `--load_dir` resume, replay-ring snapshots and the sharded path are not
-ported yet.
+ported yet: `train` refuses `tpu.sharded` and `tpu.update_batch_scale` > 1
+(`trainer.refuse_unported`) and says in its log that ring snapshots are
+off where the JAX trainer would write them.
 """
 
 from __future__ import annotations
@@ -62,6 +64,19 @@ def _device(name):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device is available; pass --device cpu to run on the CPU")
     return device
+
+
+def ring_snapshot_note(tpu):
+    """The log line saying that replay-ring snapshots are off, for a config
+    under which the JAX trainer writes them (train.py:206-216: on unless
+    tpu.ring_checkpoint_rows is 0); None otherwise."""
+    rows = int(tpu.get("ring_checkpoint_rows", 65536))
+    if rows <= 0:
+        return None
+    every = int(tpu.get("ring_checkpoint_every", 500_000))
+    return (f"replay-ring snapshots are off in the port: the JAX trainer would save the "
+            f"newest {rows} replay rows every {every} frames and at exit "
+            "(tpu.ring_checkpoint_rows / ring_checkpoint_every; ROADMAP Queue 1 item 3)")
 
 
 def _rms(r: RunningMeanStd):
@@ -113,6 +128,9 @@ def train(args):
 
     t_start = time.perf_counter()
     trainer = Trainer(config, algo=algo, device=device, seed=args.seed)
+    note = ring_snapshot_note(tpu)
+    if note:
+        log.warning(note)
     state = trainer.init_state()
     frames_per_chunk = chunk_steps * trainer.num_envs
 

@@ -49,15 +49,35 @@ METRIC_KEYS = ("critic_loss", "actor_loss", "bc_loss", "bc_gate", "alpha_loss", 
                "entropy", "td_abs", "q_target_mean", "reward_mean", "reward_max", "done_frac")
 
 
+def refuse_unported(tpu_cfg):
+    """Raise on configuration the port cannot honour yet, rather than run
+    something other than what the config asks (ROADMAP Queue 1 lists
+    both items)."""
+    if bool(tpu_cfg.get("sharded", False)):
+        raise ValueError(
+            "tpu.sharded: true asks for the data-parallel trainer "
+            "(deep_rl_grasping_tpu/parallel/train_dp.py), which the port does not have yet "
+            "(ROADMAP Queue 1 item 10, multi-GPU); set it to false to train on one device")
+    scale = int(tpu_cfg.get("update_batch_scale", 1) or 1)
+    if scale > 1:
+        raise ValueError(
+            f"tpu.update_batch_scale: {scale} folds that many updates into one larger batch "
+            "(deep_rl_grasping_tpu/training/trainer.py:237-259), which the port does not do "
+            "yet (ROADMAP Queue 1 item 9); set it to 1")
+
+
 class EvalMixin:
     """Needs `self.config`, `self.normalize` and `self.device`."""
 
     def evaluate(self, actor, normalizer, n_episodes=10, validate=True, stochastic=False,
-                 lam=None):
+                 lam=None, initial_states=None):
         """Protocol evaluation: `n_episodes` envs in parallel, each until its
         first episode ends or the time horizon, at curriculum lambda `lam`
         (default 1, the protocol difficulty; the training lambda gives the
-        diagnostic on the distribution the policy trains on)."""
+        diagnostic on the distribution the policy trains on).
+        `initial_states` (an `EnvState` of `n_episodes` envs on the device)
+        starts the protocol from given scenes instead of drawing them, for
+        example the JAX package's own evaluation scenes."""
         eval_env = GraspEnv(self.config, evaluate=True, validate=validate, device=self.device)
         scene_gen = torch.Generator(device=self.device)
         scene_gen.manual_seed(SCENE_SEED)
@@ -68,7 +88,14 @@ class EvalMixin:
         cur = benv.init_curriculum()
         cur = cur.replace(lam=torch.full_like(cur.lam, lam_val))
 
-        states, obs = benv.reset(cur)
+        if initial_states is None:
+            states, obs = benv.reset(cur)
+        else:
+            if initial_states.episode_step.shape[0] != n_episodes:
+                raise ValueError(f"initial_states holds {initial_states.episode_step.shape[0]} "
+                                 f"envs, expected {n_episodes}")
+            states = initial_states
+            obs = benv.observe_batch(states)
         B, dev = n_episodes, self.device
         done_once = torch.zeros(B, dtype=torch.bool, device=dev)
         ret = torch.zeros(B, device=dev)
@@ -160,6 +187,7 @@ class Trainer(EvalMixin):
             raise NotImplementedError("the port trains SAC only")
         self.device = torch.device(device)
         tpu_cfg = self.config["tpu"]
+        refuse_unported(tpu_cfg)
         self.env = GraspEnv(self.config, device=self.device)
         self.num_envs = int(tpu_cfg.get("num_envs", 128))
         gen = lambda k: torch.Generator(device=self.device).manual_seed(seed * 4 + k)

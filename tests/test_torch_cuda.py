@@ -10,6 +10,10 @@ imports JAX):
 Each kernel is held against its plain PyTorch version on the card, on the
 same inputs: the solver at the JAX package's Pallas-vs-XLA grasp tolerance
 (2e-3 on positions and gripper coordinates, tests/test_solver_pallas.py),
+also at the kernel's limits (K=6 objects of S=8 spheres, SC=4 pair spheres,
+the tray: the largest shared-memory request), and two launches of the solver
+on the same inputs must give bit-equal outputs (it sums without atomics, in
+a fixed order);
 the raster with segment ids equal on all but 0.05% of pixels and depth to
 1e-4 m on all but 0.5% of the pixels whose ids agree (edge pixels are
 ill-conditioned; see chip_smoke.py), and its shade output to 1e-4 on all
@@ -48,7 +52,8 @@ def dev():
 
 def _env(dev, scene_type="OnFloor", **tpu):
     """An eval env of the depth flagship, or with scene_type "train" a
-    training env (randomized camera) of the RGB-D flagship."""
+    training env (randomized camera) of the RGB-D flagship. With
+    `max_objects` every slot holds an object."""
     if scene_type == "train":
         env = GraspEnv(cfg_util.load_config(TRAIN_CONFIG), device=dev)
         assert env.randomize is not None
@@ -56,6 +61,8 @@ def _env(dev, scene_type="OnFloor", **tpu):
     cfg = cfg_util.load_config(FLAGSHIP)
     cfg["scene"]["scene_type"] = scene_type
     cfg["tpu"].update(tpu)
+    if "max_objects" in tpu:
+        cfg["curriculum"]["max_objects"] = [tpu["max_objects"]] * 2
     return GraspEnv(cfg, evaluate=True, validate=True, device=dev)
 
 
@@ -80,10 +87,16 @@ def _grasp_batch(env, B, seed):
     ("OnTable", {}),
     ("OnFloor", dict(pinch_damping=0.2, oo_point_mass_tangent=False, oo_pass_stride=1)),
     ("train", {}),
-], ids=["floor", "table", "pinch_knobs_off", "train"])
+    ("OnTable", dict(max_objects=6, oo_spheres=4)),
+], ids=["floor", "table", "pinch_knobs_off", "train", "limits"])
 def test_solver_kernel_matches_plain(dev, scene_type, tpu):
     env = _env(dev, scene_type, **tpu)
     st = _grasp_batch(env, 128 if scene_type == "train" else 32, seed=1)
+    if "max_objects" in tpu:  # the kernel's limits: the largest shared-memory request
+        lim = (st.objects.pos.shape[1], env.sim_params.radii.shape[1],
+               env.sim_params.oo_radii.shape[1], env.sim_params.has_tray)
+        assert lim == (6, 8, 4, True) and bool(st.objects.alive.all())
+        assert solver_cuda.launch_config(32, *lim)["shared_bytes"] > 48 * 1024
     before = solver_cuda.run_batch.launches
     a = solver_cuda.run_batched_sim(st, env.sim_params, 16)
     assert solver_cuda.run_batch.launches == before + 1
@@ -91,6 +104,25 @@ def test_solver_kernel_matches_plain(dev, scene_type, tpu):
     for x, y in ((a.gripper.q, b.gripper.q), (a.objects.pos, b.objects.pos)):
         assert bool(torch.isfinite(x).all())
         assert float((x - y).abs().max()) <= 2e-3
+
+
+def test_solver_kernel_is_deterministic(dev):
+    """Two launches on the same inputs give bit-equal outputs."""
+    env = _env(dev, "train")
+    st = _grasp_batch(env, 128, seed=5)
+    ins = solver_cuda.kernel_inputs(st, env.sim_params)
+    a = solver_cuda.run_batch(*ins, params=env.sim_params, n_substeps=16)
+    b = solver_cuda.run_batch(*ins, params=env.sim_params, n_substeps=16)
+    for x, y in zip(a, b):
+        assert bool(torch.isfinite(x).all()) and torch.equal(x, y)
+
+
+def test_solver_kernel_resources(dev):
+    """The launch's block fits the compiled kernel; no per-thread stack or
+    spill memory."""
+    attrs = solver_cuda.kernel_attributes()
+    assert attrs["max_threads_per_block"] >= solver_cuda.launch_config(1, 5, 8, 3, False)["threads"]
+    assert attrs["local_bytes"] == 0, attrs
 
 
 def _raster_args(env, dev):
@@ -180,5 +212,6 @@ def test_wrappers_check_their_inputs(dev):
 def test_library_is_built_once(dev):
     lib = build.library()
     assert build.library() is lib
-    assert os.path.isfile(lib.path)
+    assert sorted(lib.paths) == ["raster.cu", "solver.cu"]
+    assert all(os.path.isfile(p) for p in lib.paths.values())
     assert np.isfinite(lib.build_seconds)

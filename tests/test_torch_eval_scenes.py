@@ -1,0 +1,225 @@
+"""The JAX package's own validation scenes of the r5c bundle, in the port.
+
+`deep_rl_grasping_tpu_torch/data/r5c_val_scenes.npz` holds the 100 env
+states that the JAX package's protocol evaluation of
+`trained/sac_full_flagship_r5c` starts from: `EvalMixin.evaluate`
+(deep_rl_grasping_tpu/training/trainer.py:150-168) builds the eval
+`GraspEnv` of the bundle's config, `BatchedGraspEnv(..., 100)` and resets
+it with `PRNGKey(1)` at curriculum lambda 1. The file was built with the
+JAX package on the CPU (XLA physics for the settle) and also holds, for the
+first 8 envs:
+
+* the JAX package's first observation, through its Pallas raster in
+  interpret mode (the kernel the port replaces; see tests/test_torch_env.py
+  on why not the XLA renderer);
+* the r5c actor's deterministic action on that observation (the port's
+  actor; tests/test_torch_networks.py holds it against the JAX actor);
+* the JAX state, reward and done after one control step with those
+  actions (`BatchedGraspEnv.step`, XLA physics).
+
+The port's evaluation can start from these states
+(`EvalMixin.evaluate(initial_states=...)`), which settles whether the
+port's 100-episode success rate differs from the JAX figure by scene luck
+(chip_smoke.py evaluates the bundle from them on the card).
+
+Tolerances: the observation as in tests/test_torch_env.py (1e-4 on all but
+0.1% of the values; a pixel whose nearest primitive flips under float32
+rounding differs by more); the action to 2e-2 (bf16 layers, run on
+observations that agree to 1e-4); after the step, rewards to 1e-2 (height
+changes are scaled by 1000), dones exactly, gripper coordinates and object
+positions to 1e-5 m (16 substeps of float32 contact solving in two
+summation orders; the gaps seen are under 1e-7 m).
+
+Rebuild the file (JAX on the CPU, about two minutes):
+
+    JAX_PLATFORMS=cpu python tests/test_torch_eval_scenes.py --rebuild
+"""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+from deep_rl_grasping_tpu_torch.algos import normalize as norm_mod  # noqa: E402
+from deep_rl_grasping_tpu_torch.algos import sac  # noqa: E402
+from deep_rl_grasping_tpu_torch.envs import grasp_env as tenv  # noqa: E402
+from deep_rl_grasping_tpu_torch.envs import rewards as trew  # noqa: E402
+from deep_rl_grasping_tpu_torch.training import train as ttrain  # noqa: E402
+
+BUNDLE = os.path.join(REPO, "trained", "sac_full_flagship_r5c")
+SCENES_R5C_VAL = os.path.join(REPO, "deep_rl_grasping_tpu_torch", "data", "r5c_val_scenes.npz")
+N_EPISODES = 100  # the protocol
+N_CHECK = 8       # envs whose observation and first step are stored
+
+
+def build_scenes(path=SCENES_R5C_VAL):
+    """Build the npz with the JAX package (run by hand, see the docstring)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+
+    from deep_rl_grasping_tpu.envs import grasp_env as jenv
+    from deep_rl_grasping_tpu.utils import config as jcfg
+    from tests.test_torch_env import _pallas_obs
+
+    cfg = jcfg.load_config(os.path.join(BUNDLE, "config.yaml"))
+    je = jenv.GraspEnv(cfg, evaluate=True, validate=True)
+    jb = jenv.BatchedGraspEnv(je, N_EPISODES, use_pallas=False)
+    cur = jb.init_curriculum()
+    cur = cur.replace(lam=jnp.asarray(1.0, jnp.float32))
+    states, _ = jax.jit(jb.reset)(jax.random.PRNGKey(1), cur)
+
+    def flat(s):
+        out = {}
+        for part in ("gripper", "objects"):
+            sub = getattr(s.sim, part)
+            for f in dataclasses.fields(sub):
+                out[f"{part}.{f.name}"] = np.asarray(getattr(sub, f.name))
+        for f in tenv._ENV_FIELDS:
+            out[f] = np.asarray(getattr(s, f))
+        for f in tenv._REWARD_FIELDS:
+            out[f"reward_state.{f}"] = np.asarray(getattr(s.reward_state, f))
+        return out
+
+    first = jax.tree.map(lambda x: x[:N_CHECK], states)
+    obs = _pallas_obs(je, first)
+    _, actor, normalizer = ttrain.load_bundle_actor(BUNDLE, "cpu")
+    obs_in = torch.as_tensor(np.array(obs))
+    if cfg.get("normalize", False):
+        obs_in = norm_mod.normalize_obs(normalizer, obs_in)
+    with torch.no_grad():
+        actions = sac.act(actor, obs_in, torch.Generator(), deterministic=True).numpy()
+    jb8 = jenv.BatchedGraspEnv(je, N_CHECK, use_pallas=False)
+    cur8 = jb8.init_curriculum()
+    cur8 = cur8.replace(lam=jnp.asarray(1.0, jnp.float32))
+    stepped, _, reward, done, _, _ = jax.jit(jb8.step)(first, jnp.asarray(actions), cur8)
+    out = {f"scene.{k}": v for k, v in flat(states).items()}
+    out.update({f"step.{k}": v for k, v in flat(stepped).items()})
+    out.update({"obs": obs.astype(np.float32), "actions": actions.astype(np.float32),
+                "step.reward": np.asarray(reward), "step.done": np.asarray(done)})
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez_compressed(path, **out)
+    return path
+
+
+def _part(data, prefix):
+    return {k[len(prefix):]: data[k] for k in data.files if k.startswith(prefix)}
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    data = np.load(SCENES_R5C_VAL)
+    config, actor, normalizer = ttrain.load_bundle_actor(BUNDLE, "cpu")
+    env = tenv.GraspEnv(config, evaluate=True, validate=True, device="cpu")
+    states = tenv.env_state_from_numpy(_part(data, "scene."))
+    yield data, config, actor, normalizer, env, states
+    torch.set_num_threads(n)
+
+
+def _first(states, n=N_CHECK):
+    import dataclasses
+
+    def cut(x):
+        if dataclasses.is_dataclass(x):
+            return type(x)(**{f.name: cut(getattr(x, f.name)) for f in dataclasses.fields(x)})
+        return x[:n]
+    return cut(states)
+
+
+def test_scenes_load_into_the_port(scenes):
+    """100 fresh episodes of the eval env's shapes, drawn from the
+    validation object split, at lambda 1."""
+    data, _, _, _, env, states = scenes
+    assert states.episode_step.shape == (N_EPISODES,)
+    assert states.sim.objects.pos.shape == (N_EPISODES, env.max_slots, 3)
+    assert bool((states.episode_step == 0).all()) and bool((states.status == trew.RUNNING).all())
+    alive_types = states.sim.objects.obj_type[states.sim.objects.alive]
+    assert bool(torch.isin(alive_types, env.type_ids).all())
+    # lambda 1: up to the curriculum's most objects, lift at its full distance
+    assert int(states.sim.objects.alive.sum(-1).max()) <= env.max_slots
+    assert float(states.lift_dist.min()) == pytest.approx(0.1)
+    assert all(bool(torch.isfinite(t).all()) for t in
+               (states.sim.objects.pos, states.sim.objects.quat, states.sim.gripper.q))
+    # the round trip through numpy is exact
+    again = tenv.env_state_to_numpy(states)
+    for k, v in _part(data, "scene.").items():
+        np.testing.assert_array_equal(again[k], v.astype(again[k].dtype), err_msg=k)
+
+
+def test_first_observation_matches_jax(scenes):
+    data, _, _, _, env, states = scenes
+    benv = tenv.BatchedGraspEnv(env, N_CHECK, torch.Generator().manual_seed(0))
+    obs = benv.observe_batch(_first(states)).numpy()
+    ref = data["obs"]
+    assert obs.shape == ref.shape == (N_CHECK, 64, 64, 2)
+    off = np.abs(obs - ref) > 1e-4
+    assert off.mean() <= 1e-3, f"{off.sum()} observation values differ by more than 1e-4"
+    np.testing.assert_allclose(obs[:, 0, 0, -1], ref[:, 0, 0, -1], atol=1e-5)
+    assert (ref[..., 0] > 0).mean() > 0.99  # a real depth image, not an empty one
+
+
+def test_one_control_step_matches_jax(scenes):
+    """The r5c actor's deterministic action on the port's observation
+    agrees with the stored one; one control step with the stored actions
+    matches the JAX step, and is bit-equal when repeated."""
+    data, config, actor, normalizer, env, states = scenes
+    benv = tenv.BatchedGraspEnv(env, N_CHECK, torch.Generator().manual_seed(0))
+    first = _first(states)
+    obs = benv.observe_batch(first)
+    obs_in = norm_mod.normalize_obs(normalizer, obs) if config.get("normalize") else obs
+    with torch.no_grad():
+        act = sac.act(actor, obs_in, torch.Generator(), deterministic=True)
+    np.testing.assert_allclose(act.numpy(), data["actions"], atol=2e-2, rtol=0)
+    cur = benv.init_curriculum()
+    cur = cur.replace(lam=torch.full_like(cur.lam, 1.0))
+    actions = torch.as_tensor(data["actions"])
+    runs = [benv.step(first, actions, cur) for _ in range(2)]
+    (s1, o1, r1, d1, _, _), (s2, o2, r2, d2, _, _) = runs
+    assert torch.equal(o1, o2) and torch.equal(r1, r2) and torch.equal(d1, d2)
+    assert torch.equal(s1.sim.objects.pos, s2.sim.objects.pos)
+    ref = _part(data, "step.")
+    np.testing.assert_array_equal(d1.numpy(), ref["done"])
+    np.testing.assert_allclose(r1.numpy(), ref["reward"], atol=1e-2, rtol=0)
+    got = tenv.env_state_to_numpy(s1)
+    live = ~ref["done"]
+    for key in ("gripper.q", "objects.pos"):
+        np.testing.assert_allclose(got[key][live], ref[key][live], atol=1e-5, rtol=0, err_msg=key)
+    # the step moved the grippers (the policy acts, it is not a no-op)
+    moved = np.abs(ref["gripper.q"][:, :3] - data["scene.gripper.q"][:N_CHECK, :3])
+    assert float(moved.max()) > 1e-3
+
+
+def test_evaluate_starts_from_given_states(scenes):
+    """`EvalMixin.evaluate(initial_states=...)` runs the protocol from the
+    stored scenes (here 8 of them, with a one-step horizon) and refuses a
+    batch of the wrong size."""
+    from deep_rl_grasping_tpu_torch.training.trainer import Evaluator
+
+    _, config, actor, normalizer, _, states = scenes
+    cfg = dict(config, time_horizon=1)
+    states = _first(states)
+    res = Evaluator(cfg, device="cpu").evaluate(actor, normalizer, n_episodes=N_CHECK,
+                                                initial_states=states)
+    assert res["episodes"] == N_CHECK and res["control_steps"] == 1
+    assert res["mean_length"] == 1.0 and np.isfinite(res["mean_return"])
+    with pytest.raises(ValueError):
+        Evaluator(cfg, device="cpu").evaluate(actor, normalizer, n_episodes=N_CHECK + 1,
+                                              initial_states=states)
+
+
+if __name__ == "__main__":
+    if "--rebuild" not in sys.argv:
+        raise SystemExit(
+            "usage: JAX_PLATFORMS=cpu python tests/test_torch_eval_scenes.py --rebuild")
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    print("wrote", build_scenes())

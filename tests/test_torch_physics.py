@@ -199,3 +199,42 @@ def test_solver_wrapper_uses_plain_version_on_cpu():
                               ts.objects.alive.float(), None, torch.zeros(1, 1, 1), None,
                               torch.zeros(1, 1, 1), None, None, params=tp, n_substeps=1)
 
+
+
+# Shared-memory request of the solver kernel, from its table widths (23
+# floats per static row, 25 per pad row, 26 per object-pair row, 35 per
+# body, 7 per sphere, one cross mass per pad slot, and the impulse scratch:
+# 6 floats per row, 12 per pair row, for the widest category).
+def _shared_bytes(K, S, SC, NS):
+    KS, NOO = K * S, K * (K - 1) // 2 * SC * SC
+    scratch = max(6 * max(NS * KS, 2 * KS), 12 * NOO)
+    return 4 * (23 * NS * KS + 25 * 2 * KS + 26 * NOO + 35 * K + 7 * KS + 7 * K * SC + KS
+                + scratch)
+
+
+@pytest.mark.parametrize("B,K,S,SC,tray", [(100, 5, 8, 3, False), (128, 5, 8, 3, False),
+                                           (32, 5, 8, 3, True)],
+                         ids=["eval_flagship", "train_flagship", "table"])
+def test_solver_launch_config_flagship(B, K, S, SC, tray):
+    """One block per env of whole warps (two: one thread per pad row of the
+    flagship); the eval and train flagships (K=5, S=8, SC=3, no tray) ask
+    for 27,760 bytes, under the 48 KB a block gets without opting in."""
+    cfg = solver_cuda.launch_config(B, K, S, SC, tray)
+    assert cfg["blocks"] == B
+    assert cfg["threads"] % 32 == 0 and cfg["threads"] >= K * S
+    assert cfg["shared_bytes"] == _shared_bytes(K, S, SC, 5 if tray else 1)
+    if not tray:
+        assert cfg["shared_bytes"] == 27_760 < 48 * 1024
+
+
+def test_solver_launch_config_limits():
+    """Every shape the kernel takes (K <= 6, S <= 8, SC <= 4, with or
+    without the tray) fits in the 232,448 bytes of shared memory a Hopper
+    block can opt into; the largest, K=6, S=8, SC=4 with the tray, asks
+    for 71,208."""
+    sizes = {(K, S, SC, tray): solver_cuda.launch_config(1, K, S, SC, tray)["shared_bytes"]
+             for K in range(1, 7) for S in range(1, 9) for SC in range(1, 5)
+             for tray in (False, True)}
+    assert max(sizes.values()) == sizes[(6, 8, 4, True)] == _shared_bytes(6, 8, 4, 5) == 71_208
+    assert max(sizes.values()) < 232_448
+    assert min(sizes.values()) > 0

@@ -151,3 +151,36 @@ def test_train_refuses_cuda_without_a_card(tmp_path):
     with pytest.raises(SystemExit):
         train.main(["train", "--config", os.path.join(REPO, "configs", "sac_rgbd_flagship.yaml"),
                     "--algo", "SAC", "--model_dir", str(tmp_path)])
+
+
+def _flagship_config(**tpu):
+    cfg = cfg_util.load_config(os.path.join(REPO, "configs", "sac_rgbd_flagship.yaml"))
+    cfg["tpu"].update(tpu)
+    return cfg
+
+
+@pytest.mark.parametrize("tpu,item", [(dict(sharded=True), "item 10"),
+                                      (dict(update_batch_scale=2), "item 9")],
+                         ids=["sharded", "update_batch_scale"])
+def test_trainer_refuses_what_the_port_cannot_honour(tpu, item):
+    """A config the port would otherwise run differently from what it asks
+    is refused, with the ROADMAP item that will port it."""
+    from deep_rl_grasping_tpu_torch.training.trainer import Trainer
+
+    with pytest.raises(ValueError, match=item):
+        Trainer(_flagship_config(**tpu), device="cpu")
+
+
+def test_trainer_builds_the_flagship_config():
+    """The shipped flagship config (sharded false, no batch scale) still
+    builds, at full width; and `train` says that ring snapshots are off,
+    unless the config turns them off as well."""
+    from deep_rl_grasping_tpu_torch.training.trainer import Trainer
+
+    cfg = _flagship_config(update_batch_scale=1, sharded=False)
+    trainer = Trainer(cfg, device="cpu")
+    assert trainer.num_envs == 128 and trainer.updates_per_step == 128
+    assert trainer.batch_size == 256
+    note = train.ring_snapshot_note(cfg["tpu"])
+    assert note.startswith("replay-ring snapshots are off") and "Queue 1 item 3" in note
+    assert train.ring_snapshot_note(dict(cfg["tpu"], ring_checkpoint_rows=0)) is None
