@@ -10,9 +10,14 @@ resources (registers, local bytes, shared bytes per env), holds each kernel
 its plain PyTorch version at the shapes of both main paths (eval: B=100,
 the nominal camera; train: B=128, a randomized camera pose and intrinsics
 per env; the solver on the scenes of two seeds and at two horizons, see
-SOLVER_SEEDS), then drives the port's two paths through the command-line
-entry point, each with the launch counts set to 0 just before and read
-just after:
+SOLVER_SEEDS; the raster's per-tile culled launch also against a launch
+with every live sphere in every tile's list and against a repeat of
+itself, bit for bit, and the tile lists the kernel writes against the
+plain twin of its cull), times each kernel on the device (`device_ms`: 50
+launches captured in one CUDA graph, replayed between CUDA events; the
+ms per Python call beside it as `call_ms`), then drives the port's two paths
+through the command-line entry point, each with the launch counts set to 0
+just before and read just after:
 
 * eval: `run --npz trained/sac_full_flagship_r5c` (100 episodes,
   validation split) with the committed flagship SAC bundle; then, as a
@@ -27,9 +32,12 @@ just after:
 
 Each phase prints one JSON line with its elapsed seconds. The last three
 lines are the card's name and power limit (nvidia-smi), one JSON object
-with every kernel's measurements, and the result line
-`{"ok": true, "device": {...}}`. Any failure raises and the exit code is
-non-zero; without a CUDA device it exits non-zero and prints no result.
+with every kernel's measurements (the raster's `bound_ms` counts the
+pixel-sphere pairs its culled launch tests, from the lists it writes;
+`bound_ms_all_pairs` counts every pair, as the first design's bound
+did), and the result line `{"ok": true, "device": {...}}`. Any failure
+raises and the exit code is non-zero; without a CUDA device it exits
+non-zero and prints no result.
 
 Imports only the standard library, numpy, torch and the port.
 """
@@ -126,13 +134,45 @@ def log(phase, **kv):
 
 
 def cuda_ms(fn, reps, torch):
-    """Mean milliseconds per call of fn() on the current stream (CUDA events)."""
+    """Mean milliseconds per call of fn() on the current stream (CUDA events
+    around `reps` calls from Python): where the host needs longer per call
+    than the device, this is the host's pace (`call_ms`)."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+DEVICE_REPS = 50  # launches per CUDA graph in device_ms
+TIMING = "cuda_graph"  # how the `ms` of the kernels line is measured: device_ms
+
+
+def device_ms(fn, torch, reps=DEVICE_REPS):
+    """Mean device milliseconds per launch of fn(): `reps` calls captured in
+    one CUDA graph (their outputs come from the graph's private pool), the
+    graph replayed once to warm up and once more between CUDA events, so
+    the host's per-call work is not in the figure. The wrappers' launch
+    counts are restored after the capture: a capture enqueues nothing."""
+    from deep_rl_grasping_tpu_torch.ops import raster_cuda, solver_cuda
+
+    fn()
+    torch.cuda.synchronize()
+    counts = read_counts(solver_cuda, raster_cuda)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    set_counts(solver_cuda, raster_cuda, counts)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -153,10 +193,14 @@ def solver_flops(B, K, S, SC, NS, n_sub, iters, pad_inner, stride):
     return B * n_sub * (build + it + oo + K * 60)
 
 
+def set_counts(solver_cuda, raster_cuda, counts):
+    solver_cuda.run_batch.launches = counts["solver"]
+    raster_cuda.raster_depth_seg.launches = counts["raster"]
+    raster_cuda.raster_depth_seg.shade_launches = counts["raster_shade"]
+
+
 def reset_counts(solver_cuda, raster_cuda):
-    solver_cuda.run_batch.launches = 0
-    raster_cuda.raster_depth_seg.launches = 0
-    raster_cuda.raster_depth_seg.shade_launches = 0
+    set_counts(solver_cuda, raster_cuda, {"solver": 0, "raster": 0, "raster_shade": 0})
 
 
 def read_counts(solver_cuda, raster_cuda):
@@ -252,6 +296,24 @@ def solver_check(path, env, B, seed):
     return st, out_p, gen, errs
 
 
+def raster_scenes(env, B, sim, gen):
+    """The raster checks' scenes: env states drawn from `gen` around the
+    sim state `sim` (the solver check's result), with the grippers yawed
+    over the whole circle, so the camera and the finger pads turn with
+    them. Returns the env state and render_batch's positional arguments."""
+    import torch
+
+    from deep_rl_grasping_tpu_torch.render import raycast
+
+    rs = env.reset_env(gen, B, 1.0)
+    q = sim.gripper.q.clone()
+    q[:, 3] = torch.linspace(-3.1, 3.1, B, device=env.device)
+    rs = rs.replace(sim=sim.replace(gripper=sim.gripper.replace(q=q)))
+    cam_pos, cam_R = raycast.camera_pose_from_gripper(rs.sim.gripper.q, rs.cam_t, rs.cam_R)
+    return rs, (rs.sim, env.sim_params, cam_pos, cam_R, rs.intrinsics, env.im_h, env.im_w,
+                env.near, env.far)
+
+
 def kernel_checks(path, env, B):
     """Solver, raster (depth + seg) and raster-with-shade kernels against
     their plain versions on one path's states (B envs of `env`, on the
@@ -264,14 +326,14 @@ def kernel_checks(path, env, B):
     from deep_rl_grasping_tpu_torch.render import raycast
     from deep_rl_grasping_tpu_torch.sim import physics
 
-    dev = env.device
     params, n_sub = env.sim_params, env.gripper_substeps
     runs = [solver_check(path, env, B, seed) for seed in SOLVER_SEEDS]
     errs = {k: max(r[3][k] for r in runs) for k in SOLVER_TOL}
     st, out_p, gen, _ = runs[0]
     k_in = solver_cuda.kernel_inputs(st, params)
-    solver_ms = cuda_ms(lambda: solver_cuda.run_batch(*k_in, params=params, n_substeps=n_sub),
-                        10, torch)
+    solver_fn = lambda: solver_cuda.run_batch(*k_in, params=params, n_substeps=n_sub)
+    solver_call_ms = cuda_ms(solver_fn, 10, torch)
+    solver_ms = device_ms(solver_fn, torch)
     solver_plain_ms = cuda_ms(lambda: physics.run(st, params, n_sub), 2, torch)
     K, S = st.objects.pos.shape[1], params.radii.shape[1]
     SC = params.oo_radii.shape[1]
@@ -281,20 +343,15 @@ def kernel_checks(path, env, B):
     io_bytes = 4 * B * (6 + 6 + 4 + 1 + K * (3 + 4 + 3 + 3 + 1 + S * 4 + SC * 4 + 1 + 3)
                         + 6 + 6 + K * (3 + 4 + 3 + 3))
     log("solver", path=path, B=B, n_substeps=n_sub, max_abs_err=errs, seeds=SOLVER_SEEDS,
-        kernel_ms=solver_ms, plain_ms=solver_plain_ms,
+        kernel_ms=solver_ms, timing=TIMING, call_ms=solver_call_ms, plain_ms=solver_plain_ms,
         bound_ms=max(io_bytes / HBM_BYTES_PER_S, fl / FP32_FLOPS_PER_S) * 1e3,
         flops=fl, bytes=io_bytes)
 
-    rs = env.reset_env(gen, B, 1.0)
-    q = out_p.gripper.q.clone()
-    q[:, 3] = torch.linspace(-3.1, 3.1, B, device=dev)
-    rs = rs.replace(sim=out_p.replace(gripper=out_p.gripper.replace(q=q)))
-    cam_pos, cam_R = raycast.camera_pose_from_gripper(rs.sim.gripper.q, rs.cam_t, rs.cam_R)
+    rs, args = raster_scenes(env, B, out_p, gen)
     # per-env camera spread: 0 for the nominal camera, > 0 when randomized
     spread = {"intrinsics": float((rs.intrinsics - rs.intrinsics[:1]).abs().max()),
               "cam_R": float((rs.cam_R - rs.cam_R[:1]).abs().max())}
     H, W = env.im_h, env.im_w
-    args = (rs.sim, params, cam_pos, cam_R, rs.intrinsics, H, W, env.near, env.far)
     d_k, s_k = raster_cuda.render_batch(*args)
     d_p, s_p = raycast.render(*args)
     torch.cuda.synchronize()
@@ -307,25 +364,57 @@ def kernel_checks(path, env, B):
     n_over = int((err[same] > DEPTH_TOL).sum())
     worst = int(torch.argmax(torch.where(same, err, torch.zeros_like(err))))
     r_args, r_kw = raster_cuda.kernel_inputs(*args)
-    raster_ms = cuda_ms(lambda: raster_cuda.raster_depth_seg(*r_args, **r_kw), 50, torch)
+    # the per-tile cull drops only spheres no ray of the tile hits: a launch
+    # with every live sphere in every tile's list gives the same bits, and
+    # so does a repeat (which also reads back the tile lists: they must be
+    # the twin's up to rounding, and give the pairs the kernel tests)
+    off = raster_cuda.raster_depth_seg(*r_args, **r_kw, cull=False)
+    *again, lists = raster_cuda.launch(r_args, **r_kw, lists=True)
+    cull_equal = bool(torch.equal(off[0], d_k) and torch.equal(off[1], s_k))
+    repeat_equal = bool(torch.equal(again[0], d_k) and torch.equal(again[1], s_k))
+    twin = raster_cuda.check_lists(lists, r_args[0], r_args[1], *r_args[5:], H, W)
+    pairs = raster_cuda.pairs_tested(lists, H, W)
+    raster_fn = lambda: raster_cuda.raster_depth_seg(*r_args, **r_kw)
+    raster_call_ms = cuda_ms(raster_fn, 50, torch)
     raster_glue_ms = cuda_ms(lambda: raster_cuda.render_batch(*args), 20, torch)
     raster_plain_ms = cuda_ms(lambda: raycast.render(*args), 5, torch)
+    raster_ms = device_ms(raster_fn, torch)
     P = K * S
     n_walls = 4 if params.has_tray else 0
-    r_flops = B * H * W * (20 + 10 + P * 25 + 3 * 45 + n_walls * 35)
+    tiles = raster_cuda.launch_config(B, P, H, W)["tiles"]
+    # operations: per pixel the ray and plane (30), three gripper boxes (45
+    # each) and the walls (35 each); per pixel-sphere pair the kernel tests
+    # (from its own lists) 25; per tile the cone (175) and per tile and
+    # sphere the cull (55). The all-pairs count, every pixel against every
+    # sphere, is the bound the first design (one thread per pixel over all
+    # spheres) was held to.
+    pair_count = pairs * B * H * W * P
+    per_pixel = B * H * W * (20 + 10 + 3 * 45 + n_walls * 35)
+    r_flops = per_pixel + pair_count * 25 + B * tiles * (175 + P * 55)
+    r_flops_all = per_pixel + B * H * W * P * 25
     r_bytes = 4 * B * (P * 5 + 9 + 9 + 3 + 9 + 4) + 8 * B * H * W
     log("raster", path=path, B=B, H=H, W=W, P=P, camera_spread=spread,
         depth_max_abs_err=depth_err, depth_px_over_tol=n_over, depth_tol=DEPTH_TOL,
         depth_edge_tol=DEPTH_EDGE_TOL,
         worst_px={"seg": int(s_p.reshape(-1)[worst]), "depth": float(d_p.reshape(-1)[worst])},
         seg_mismatch_px=mismatch, seg_mismatch_cap=int(SEG_MISMATCH_FRAC * B * H * W),
-        object_px=int((s_p > 0).sum()), kernel_ms=raster_ms, plain_ms=raster_plain_ms,
+        object_px=int((s_p > 0).sum()), cull_off_bit_equal=cull_equal,
+        repeat_bit_equal=repeat_equal, lists_vs_twin=twin, pairs_tested=pairs,
+        tile=raster_cuda.TILE, kernel_ms=raster_ms, timing=TIMING, call_ms=raster_call_ms,
         kernel_with_gather_ms=raster_glue_ms,
+        plain_ms=raster_plain_ms,
         bound_ms=max(r_bytes / HBM_BYTES_PER_S, r_flops / FP32_FLOPS_PER_S) * 1e3,
-        flops=r_flops, bytes=r_bytes)
+        bound_ms_all_pairs=max(r_bytes / HBM_BYTES_PER_S, r_flops_all / FP32_FLOPS_PER_S) * 1e3,
+        flops=r_flops, flops_all_pairs=r_flops_all, bytes=r_bytes)
     if (not depth_err <= DEPTH_EDGE_TOL or n_over > DEPTH_OVER_FRAC * B * H * W
             or mismatch > SEG_MISMATCH_FRAC * B * H * W):
         raise RuntimeError(f"raster kernel disagrees with raycast.render ({path} shapes)")
+    if not (cull_equal and repeat_equal):
+        raise RuntimeError(f"raster kernel: culled, cull-off and repeated launches differ "
+                           f"({path} shapes)")
+    if any(twin.values()):
+        raise RuntimeError(f"raster kernel's tile lists differ from the plain twin of its cull "
+                           f"({path} shapes): {twin}")
 
     # the shade output (RGB-D observations) on the same scenes, and the RGB
     # image the env assembles from it
@@ -343,12 +432,19 @@ def kernel_checks(path, env, B):
     shade_over = int((gap > SHADE_TOL).sum())
     direct = (sh_k - sh_p).abs()[same]
     crease_px = int((direct > gap).sum())
-    shade_ms = cuda_ms(lambda: raster_cuda.raster_depth_seg(*r_args, **r_kw, with_shade=True),
-                       50, torch)
+    off = raster_cuda.raster_depth_seg(*r_args, **r_kw, with_shade=True, cull=False)
+    *again, shade_lists = raster_cuda.launch(r_args, **r_kw, with_shade=True, lists=True)
+    shade_cull_equal = all(torch.equal(x, y) for x, y in zip(off, (d_ks, s_ks, sh_k)))
+    shade_repeat_equal = all(torch.equal(x, y) for x, y in zip(again, (d_ks, s_ks, sh_k)))
+    lists_equal = bool(torch.equal(shade_lists, lists))
+    shade_fn = lambda: raster_cuda.raster_depth_seg(*r_args, **r_kw, with_shade=True)
+    shade_call_ms = cuda_ms(shade_fn, 50, torch)
     shade_plain_ms = cuda_ms(lambda: raycast.render_shade(*args), 5, torch)
+    shade_ms = device_ms(shade_fn, torch)
     # the shade adds, per pixel, the winner's normal and Lambert term (~30
     # operations) and a select per candidate; per pixel 4 more output bytes
-    s_flops = r_flops + B * H * W * (30 + P + 3 + n_walls)
+    s_flops = r_flops + B * H * W * (30 + 3 + n_walls) + pair_count
+    s_flops_all = r_flops_all + B * H * W * (30 + P + 3 + n_walls)
     s_bytes = r_bytes + 4 * B * H * W
     log("raster_shade", path=path, B=B, H=H, W=W, depth_seg_equal_to_plain_launch=same_launch,
         shade_max_abs_err=shade_err, shade_px_over_tol=shade_over,
@@ -356,27 +452,39 @@ def kernel_checks(path, env, B):
         rgb_equal_to_assembled_shade=rgb_assembled,
         rgb_max_abs_err_to_plain=float((rgb_k - rgb_p).abs()[same].max()),
         shade_tol=SHADE_TOL, shade_edge_tol=SHADE_EDGE_TOL, tie_tol=DEPTH_TOL,
-        lit_px=int((sh_k > 0.35).sum()), kernel_ms=shade_ms, plain_ms=shade_plain_ms,
+        lit_px=int((sh_k > 0.35).sum()), cull_off_bit_equal=shade_cull_equal,
+        repeat_bit_equal=shade_repeat_equal, lists_equal_to_depth_seg_launch=lists_equal,
+        pairs_tested=pairs, kernel_ms=shade_ms,
+        timing=TIMING, call_ms=shade_call_ms, plain_ms=shade_plain_ms,
         bound_ms=max(s_bytes / HBM_BYTES_PER_S, s_flops / FP32_FLOPS_PER_S) * 1e3,
-        flops=s_flops, bytes=s_bytes)
+        bound_ms_all_pairs=max(s_bytes / HBM_BYTES_PER_S, s_flops_all / FP32_FLOPS_PER_S) * 1e3,
+        flops=s_flops, flops_all_pairs=s_flops_all, bytes=s_bytes)
     if (not same_launch or not rgb_assembled or not bool(torch.isfinite(sh_k).all())
             or not shade_err <= SHADE_EDGE_TOL or shade_over > SHADE_OVER_FRAC * B * H * W):
         raise RuntimeError("raster kernel's shade output disagrees with raycast.render_shade "
                            f"({path} shapes)")
+    if not (shade_cull_equal and shade_repeat_equal and lists_equal):
+        raise RuntimeError(f"raster kernel with shade: culled, cull-off and repeated launches "
+                           f"or their tile lists differ ({path} shapes)")
+    all_pairs = lambda fl_all: max(r_bytes / HBM_BYTES_PER_S, fl_all / FP32_FLOPS_PER_S) * 1e3
     return dict(solver_err=max(errs.values()), depth_err=depth_err, shade_err=shade_err,
-                solver=(solver_ms, solver_plain_ms, fl, io_bytes),
-                raster=(raster_ms, raster_plain_ms, r_flops, r_bytes),
-                shade=(shade_ms, shade_plain_ms, s_flops, s_bytes))
+                pairs_tested=pairs, bound_ms_all_pairs={"raster": all_pairs(r_flops_all),
+                                                        "shade": all_pairs(s_flops_all)},
+                solver=(solver_ms, solver_plain_ms, fl, io_bytes, solver_call_ms),
+                raster=(raster_ms, raster_plain_ms, r_flops, r_bytes, raster_call_ms),
+                shade=(shade_ms, shade_plain_ms, s_flops, s_bytes, shade_call_ms))
 
 
 def kernel_entry(name, source, replaces, launches, launches_by_path, max_abs_err, timing,
                  **extra):
-    """One entry of the `kernels` line from (ms, plain ms, operations, bytes)."""
-    ms, plain_ms, flops, nbytes = timing
+    """One entry of the `kernels` line from (device ms, plain ms, operations,
+    bytes, ms per Python call)."""
+    ms, plain_ms, flops, nbytes, call_ms = timing
     t_ops, t_bytes = flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "launches_by_path": launches_by_path,
-            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": max_abs_err, "ms": ms, "timing": TIMING, "call_ms": call_ms,
+            "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops > t_bytes else "bytes", "library_ms": None,
             **extra}
@@ -579,11 +687,16 @@ def main():
                      shared_bytes=solver_res["shared_bytes_train"]),
         kernel_entry("raster_kernel", src + "raster.cu",
                      "deep_rl_grasping_tpu/ops/raster_pallas.py:39", launches["raster"],
-                     by_path("raster"), depth_err, checks["eval"]["raster"]),
+                     by_path("raster"), depth_err, checks["eval"]["raster"],
+                     pairs_tested=checks["eval"]["pairs_tested"],
+                     bound_ms_all_pairs=checks["eval"]["bound_ms_all_pairs"]["raster"],
+                     tile=raster_cuda.TILE),
         kernel_entry("raster_kernel_shade", src + "raster.cu",
                      "deep_rl_grasping_tpu/ops/raster_pallas.py:39 (with_shade, :204-205)",
                      train_launches["raster_shade"], by_path("raster_shade"), shade_err,
-                     checks["train"]["shade"]),
+                     checks["train"]["shade"], pairs_tested=checks["train"]["pairs_tested"],
+                     bound_ms_all_pairs=checks["train"]["bound_ms_all_pairs"]["shade"],
+                     tile=raster_cuda.TILE),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -39,6 +39,7 @@ _SIGNATURES = {
     "solver_limits": ("solver.cu", [_P], _I),
     "solver_attributes": ("solver.cu", [_P], _I),
     "raster_run": ("raster.cu", [_P] * 14, _I),
+    "raster_run_lists": ("raster.cu", [_P] * 15, _I),
 }
 
 
@@ -110,8 +111,9 @@ _loaded: dict = {}
 
 
 def _build_all(missing):
-    """Start one nvcc per source, all at once; wait for all. Returns each
-    source's compiler output; raises if any build failed."""
+    """Start one nvcc per source (a path, or a file name under CSRC_DIR),
+    all at once; wait for all. Returns each source's compiler output;
+    raises if any build failed."""
     nvcc = find_nvcc()
     procs = {}
     for src, path in missing.items():
@@ -152,6 +154,26 @@ def library() -> KernelLibrary:
         lib = KernelLibrary(paths, not missing, time.perf_counter() - t0, logs)
         _loaded["current"] = lib
         return lib
+
+
+def load_source(source, label):
+    """Build another tree's copy of one of the port's sources (its file name
+    must be one of csrc/'s) with the same flags, into BUILD_DIR as
+    libgrasp_<label>_<hash>.so, and load it with the C signatures of its
+    file name. For comparing two versions of a kernel in one process."""
+    name = os.path.basename(source)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = os.path.join(BUILD_DIR, f"libgrasp_{label}_{source_hash(source)}.so")
+    with _lock:
+        if not os.path.isfile(path):
+            _build_all({os.path.abspath(source): path})
+    lib = ctypes.CDLL(path)
+    for fn_name, (src, argtypes, restype) in _SIGNATURES.items():
+        if src == name and hasattr(lib, fn_name):
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+    return lib
 
 
 def check_tensor(t, name, shape, dev):

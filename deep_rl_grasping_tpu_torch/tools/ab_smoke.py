@@ -9,8 +9,10 @@ Each LABEL=DIR runs `python3 chip_smoke.py` in DIR, in the order given (for
 a comparison: parent, change, change, parent), each in its own process
 with its own build. Each run's whole output goes to OUT/<n>_<label>.log;
 one JSON line per run gives its exit code, wall seconds, the solver
-kernel's ms per launch and plain ms at each path's shapes, its registers
-and stack bytes as ptxas reported them, the eval wall seconds and control
+kernel's ms per launch and plain ms at each path's shapes, the raster's
+ms per launch with and without shade (device time where the run's smoke
+times on the device, and `call_ms` where it logs one), the solver's
+registers and stack bytes as ptxas reported them, the eval wall seconds and control
 steps of `run --npz`, the same-scene eval where the run has one, and the
 training phase's ms per env step and per SAC update. The card's name and
 power limit come first.
@@ -46,6 +48,10 @@ def summary(text):
         s[f"solver_ms_{d['path']}"] = d["kernel_ms"]
         s[f"solver_plain_ms_{d['path']}"] = d["plain_ms"]
         s[f"solver_max_abs_err_{d['path']}"] = d["max_abs_err"]
+    for name in ("raster", "raster_shade"):
+        for d in ph.get(name, []):
+            s[f"{name}_ms_{d['path']}"] = d["kernel_ms"]
+            s[f"{name}_call_ms_{d['path']}"] = d.get("call_ms")
     build = ph.get("build", [{}])[0].get("ptxas", [])
     lines = build.get("solver.cu", []) if isinstance(build, dict) else build
     regs = [int(m) for ln in lines for m in re.findall(r"Used (\d+) registers", ln)]

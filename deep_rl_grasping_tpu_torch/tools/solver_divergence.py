@@ -13,7 +13,7 @@ per result:
 * for each path and seed in range(SEEDS): the envs whose gap to the plain
   version passes chip_smoke.SOLVER_TOL after SHORT_SUBSTEPS and after the
   path's n_substeps, with the largest angular-velocity gap; with
-  --other-solver also for that source's kernel (built with nvcc; it is
+  --other-solver also for that source's kernel (built by build.load_source; it is
   launched through the same C entry arguments, of which the parent's
   one-thread-per-env kernel reads what it needs) and between the two;
 * for each --trace PATH:SEED:ENV, after each substep 1..n_substeps: that
@@ -25,13 +25,11 @@ per result:
 from __future__ import annotations
 
 import argparse
-import ctypes
 import dataclasses
 import json
 import os
 import subprocess
 import sys
-import tempfile
 
 import torch
 
@@ -52,14 +50,7 @@ def emit(**kv):
 
 def other_kernel(source, dev):
     """A function running another source's solver kernel on a state."""
-    out = os.path.join(tempfile.mkdtemp(prefix="solver_divergence_"), "libother.so")
-    proc = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", out, source],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise build.BuildError(proc.stdout + proc.stderr)
-    lib = ctypes.CDLL(out)
-    lib.solver_run.argtypes = [ctypes.c_void_p] * 24
-    lib.solver_run.restype = ctypes.c_int
+    lib = build.load_source(source, "other")
 
     def run(state, params, n_sub):
         ins = solver_cuda.kernel_inputs(state, params)

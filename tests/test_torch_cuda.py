@@ -14,6 +14,9 @@ also at the kernel's limits (K=6 objects of S=8 spheres, SC=4 pair spheres,
 the tray: the largest shared-memory request), and two launches of the solver
 on the same inputs must give bit-equal outputs (it sums without atomics, in
 a fixed order);
+the raster's culled launch must equal, bit for bit, a launch with every
+live sphere in every tile's sphere list, and a repeat of itself, and the
+tile lists it writes must be those of the plain twin of its cull;
 the raster with segment ids equal on all but 0.05% of pixels and depth to
 1e-4 m on all but 0.5% of the pixels whose ids agree (edge pixels are
 ill-conditioned; see chip_smoke.py), and its shade output to 1e-4 on all
@@ -181,6 +184,52 @@ def test_raster_shade_kernel_matches_plain(dev, scene_type):
     rgb_k, _, _ = raster_cuda.render_batch(*args, with_rgb=True)
     lut = raycast.color_lut(env.sim_params, st.objects.obj_type)
     assert torch.equal(rgb_k, raycast.shade_to_rgb(s1, sh1, lut))
+
+
+@pytest.mark.parametrize("scene_type", ["OnFloor", "OnTable", "train"])
+@pytest.mark.parametrize("with_shade", [False, True], ids=["depth_seg", "shade"])
+def test_raster_cull_is_bit_equal_to_cull_off(dev, scene_type, with_shade):
+    """The per-tile sphere lists drop only spheres that no ray of the tile
+    hits: a culled launch and one with every live sphere in every tile's
+    list give bit-equal depth, seg and shade. A second culled launch, which
+    also writes its tile lists, gives the same bits (no atomics). Those
+    lists are the plain twin's up to rounding and hold well under all
+    pairs; the cull-off launch lists every live sphere."""
+    env = _env(dev, scene_type)
+    _, args = _raster_args(env, dev)
+    kin, kw = raster_cuda.kernel_inputs(*args)
+    culled = raster_cuda.raster_depth_seg(*kin, **kw, with_shade=with_shade)
+    *off, off_lists = raster_cuda.launch(kin, **kw, with_shade=with_shade, cull=False,
+                                         lists=True)
+    *again, lists = raster_cuda.launch(kin, **kw, with_shade=with_shade, lists=True)
+    for x, y, z in zip(culled, off, again):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    assert torch.equal(off_lists, (kin[1] > 0)[:, None, :].expand_as(off_lists))
+    twin = raster_cuda.check_lists(lists, kin[0], kin[1], kin[5], kin[6], kin[7], 64, 64)
+    assert twin == {"listed_beyond_twin": 0, "twin_not_listed": 0}
+    assert raster_cuda.pairs_tested(lists, 64, 64) < 0.25
+
+
+def test_raster_entry_refuses_a_launch_shape_that_does_not_fit(dev):
+    """The C entry checks the shared bytes against P, and against the
+    device's limit."""
+    env = _env(dev)
+    _, args = _raster_args(env, dev)
+    kin, kw = raster_cuda.kernel_inputs(*args)
+    B, P = kin[0].shape[:2]
+    lib = build.library()
+    out = [torch.empty((B, 64, 64), dtype=dt, device=dev) for dt in (torch.float32, torch.int32)]
+    fp = np.asarray([kw["plane_z"], kw["near"], kw["far"], kw["tray_half"], kw["wall_height"]],
+                    np.float32)
+    cfg = raster_cuda.launch_config(B, P, 64, 64)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    huge = 10000  # 240 KB of spheres, over the 227 KiB a block may opt in to
+    for p, shared in ((P, cfg["shared_bytes"] - 4),
+                      (huge, raster_cuda.launch_config(B, huge, 64, 64)["shared_bytes"])):
+        ip = np.asarray([B, p, 64, 64, 0, kw["gripper_id"], 1, shared], np.int32)
+        err = lib.raster_run(fp.ctypes.data, ip.ctypes.data, *[t.data_ptr() for t in kin],
+                             out[0].data_ptr(), out[1].data_ptr(), None, stream)
+        assert err != 0, (p, shared)
 
 
 def test_wrappers_check_their_inputs(dev):
