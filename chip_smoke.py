@@ -28,7 +28,17 @@ just before and read just after:
   envs, 128 updates of batch 256 per iteration, 64x64x5 observations, the
   250k + 100k replay), with only the frame counts and cadences cut
   (TRAIN_CUTS), into a temporary directory; then `run --model` on the
-  checkpoint it wrote.
+  checkpoint it wrote;
+* encoder latents: first the trained encoder (encoder_files/full_r4) on
+  the card against the same module on the CPU, on masked depth images the
+  raster kernel renders at B=100, and the latents of the kernel's render
+  against those of the plain render (`encoder`); then `run --npz
+  trained/sac_encoder_flagship_r5` and the same bundle twice from the JAX
+  package's validation scenes (`eval_encoder`); then `train` on
+  configs/sac_encoder_flagship.yaml at full width (128 envs, 128 updates
+  of batch 256, 101-wide latents, the 1M + 100k replay), cut as TRAIN_CUTS
+  cuts the RGB-D run, and `run --model` on its checkpoint
+  (`train_encoder_latent`, `run_model_encoder_latent`).
 
 Each phase prints one JSON line with its elapsed seconds. The last three
 lines are the card's name and power limit (nvidia-smi), one JSON object
@@ -60,6 +70,14 @@ BUNDLE = os.path.join("trained", "sac_full_flagship_r5c")
 SCENES = os.path.join("deep_rl_grasping_tpu_torch", "data", "r5c_val_scenes.npz")
 EPISODES = 100  # the evaluation protocol
 TRAIN_CONFIG = os.path.join("configs", "sac_rgbd_flagship.yaml")
+# The encoder-latent bundle. Its config differs from the r5c bundle's in no
+# scene, curriculum, camera or simulation key, and the JAX package's
+# validation scenes of it are the arrays of SCENES (tests/
+# test_torch_eval_scenes.py --compare trained/sac_encoder_flagship_r5).
+ENCODER_BUNDLE = os.path.join("trained", "sac_encoder_flagship_r5")
+ENCODER_TRAIN_CONFIG = os.path.join("configs", "sac_encoder_flagship.yaml")
+# JAX validation success rates of the two bundles (their PROVENANCE.md)
+JAX_VAL = {BUNDLE: 0.86, ENCODER_BUNDLE: 0.42}
 # The only cuts of the training run: frames and cadences, so that seeding,
 # 128 updates per iteration from the first iteration, an eval, a
 # checkpoint, save_best and a demo refresh each happen. Widths, batch,
@@ -126,6 +144,11 @@ SHADE_EDGE_TOL = 2e-2
 # Actor on the card vs the same weights on the CPU: bf16 layers round at
 # other places in cuDNN/cuBLAS and in the CPU kernels.
 ACTOR_TOL = 5e-2
+# Encoder on the card vs the same weights on the CPU, same masked images:
+# three bf16 convolutions and a 2048-wide bf16 dense layer that round at
+# other places in cuDNN/cuBLAS and in the CPU kernels (the port against the
+# JAX package on the CPU: one bf16 ulp, 0.0078, at latents up to ~1.6).
+ENCODER_TOL = 5e-2
 
 
 def log(phase, **kv):
@@ -475,6 +498,155 @@ def kernel_checks(path, env, B):
                 shade=(shade_ms, shade_plain_ms, s_flops, s_bytes, shade_call_ms))
 
 
+def band_2sigma(p, n=EPISODES):
+    """The 2-sigma binomial band of a success rate p over n episodes."""
+    half = 2.0 * (p * (1.0 - p) / n) ** 0.5
+    return [p - half, p + half]
+
+
+def same_scene_evals(bundle, scene_arrays, dev):
+    """The bundle evaluated twice from the stored scenes; raises unless both
+    runs agree exactly. Returns both results with their wall seconds."""
+    import numpy as np
+    import torch
+
+    from deep_rl_grasping_tpu_torch.envs.grasp_env import env_state_from_numpy
+    from deep_rl_grasping_tpu_torch.training import train, trainer
+
+    config, actor, norm = train.load_bundle_actor(bundle, dev)
+    same = []
+    for _ in range(2):
+        evaluator = trainer.Evaluator(config, dev)
+        t0 = time.perf_counter()
+        r = evaluator.evaluate(actor, norm, n_episodes=EPISODES,
+                               initial_states=env_state_from_numpy(scene_arrays, dev))
+        torch.cuda.synchronize()
+        same.append(dict(r, wall_seconds=time.perf_counter() - t0))
+    if same[0]["episodes"] != EPISODES or not np.isfinite(same[0]["mean_return"]):
+        raise RuntimeError(f"same-scene evaluation of {bundle} is malformed: {same[0]}")
+    if any(same[0][k] != same[1][k] for k in ("success_rate", "mean_return", "mean_length")):
+        raise RuntimeError(f"two evaluations of {bundle} from the same scenes differ: {same}")
+    return same
+
+
+def train_and_run(phase, config_path, raster_key, run_phase):
+    """`train` on `config_path` at full width with only TRAIN_CUTS cut, into
+    a temporary directory, launches counted from just before to just after;
+    then `run --model` on its checkpoint. Logs `<phase>_start`, `<phase>`
+    and `run_phase`; raises unless the solver and the raster launch
+    `raster_key` were launched. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from deep_rl_grasping_tpu_torch.ops import raster_cuda, solver_cuda
+    from deep_rl_grasping_tpu_torch.training import train
+    from deep_rl_grasping_tpu_torch.utils import config as cfg_util
+    from deep_rl_grasping_tpu_torch.utils import io_utils
+
+    cfg = cfg_util.load_config(config_path)
+    tpu, sac_cfg = cfg["tpu"], cfg["SAC"]
+    # the demo ring keeps the capacity the uncut config gives it
+    tpu.setdefault("demo_capacity", tpu["demo_frames"])
+    for (block, key), value in TRAIN_CUTS.items():
+        cfg[block][key] = value
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        cfg_path = os.path.join(tmp, "config.yaml")
+        io_utils.save_yaml(cfg, cfg_path)
+        model_dir = os.path.join(tmp, "run")
+        log(f"{phase}_start", config=config_path,
+            cuts={f"{b}.{k}": v for (b, k), v in TRAIN_CUTS.items()},
+            num_envs=tpu["num_envs"], updates_per_step=tpu["updates_per_step"],
+            batch_size=sac_cfg["batch_size"], demo_fraction=tpu["demo_fraction"],
+            buffer_size=sac_cfg["buffer_size"], demo_capacity=tpu["demo_capacity"],
+            layers=sac_cfg["layers"])
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(solver_cuda, raster_cuda)
+        tr = train.main(["train", "--config", cfg_path, "--algo", "SAC", "--model_dir",
+                         model_dir, "--seed", "0"])
+        launches = read_counts(solver_cuda, raster_cuda)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        (env_s, n_iter), (upd_s, n_upd_iter) = tr["phase_seconds"]["env"], \
+            tr["phase_seconds"]["update"]
+        n_updates = tr["updates"]
+        losses = {k: tr["metrics"].get(k) for k in ("critic_loss", "actor_loss", "bc_loss",
+                                                    "alpha_loss", "q_target_mean", "entropy")}
+        log(phase, frames=tr["frames"], done=tr["done"], wall_seconds=tr["wall_seconds"],
+            iterations=n_iter, updates=n_updates,
+            env_frames_per_s_of_the_step=tpu["num_envs"] / (env_s / n_iter),
+            iteration_frames_per_s=n_iter * tpu["num_envs"] / (env_s + upd_s),
+            end_to_end_frames_per_s=tr["frames"] / tr["wall_seconds"],
+            ms_per_env_step=env_s / n_iter * 1e3,
+            ms_per_sac_update=upd_s / max(n_updates, 1) * 1e3,
+            ms_updates_per_iteration=upd_s / max(n_upd_iter, 1) * 1e3,
+            curriculum_lambda=tr["curriculum_lambda"], success_rate=tr["success_rate"],
+            episodes=tr["episodes"], losses=losses, eval=tr["eval"],
+            max_memory_allocated_gib=peak_gib, launches=launches,
+            checkpoint_step=tr["checkpoint_step"])
+        if (not tr["done"] or tr["frames"] != TRAIN_CUTS[("SAC", "total_timesteps")]
+                or n_updates != n_iter * tpu["updates_per_step"]
+                or not all(v is not None and np.isfinite(v) for v in losses.values())):
+            raise RuntimeError(f"training run ({phase}) is malformed: {tr}")
+        if min(launches["solver"], launches[raster_key]) <= 0:
+            raise RuntimeError(f"a kernel of the {phase} path was not launched: {launches}")
+
+        # `run --model` on the checkpoint the training run wrote
+        reset_counts(solver_cuda, raster_cuda)
+        ev = train.main(["run", "--model", model_dir, "--episodes", str(EPISODES)])
+        log(run_phase, episodes=ev["episodes"], success_rate=ev["success_rate"],
+            mean_return=ev["mean_return"], wall_seconds=ev["wall_seconds"],
+            launches=read_counts(solver_cuda, raster_cuda))
+        if ev["episodes"] != EPISODES or not np.isfinite(ev["mean_return"]):
+            raise RuntimeError(f"run --model result ({run_phase}) is malformed: {ev}")
+    return launches
+
+
+def encoder_check(scene_arrays, dev):
+    """The trained encoder of the encoder bundle on the card against the
+    same module on the CPU, on the masked depth images the raster kernel
+    renders for the stored scenes (B=100); and the latents of the kernel's
+    render against those of the plain render. Logs one line; raises on a
+    disagreement or a non-finite latent."""
+    import torch
+
+    from deep_rl_grasping_tpu_torch.envs.grasp_env import GraspEnv, env_state_from_numpy
+    from deep_rl_grasping_tpu_torch.ops import raster_cuda
+    from deep_rl_grasping_tpu_torch.render import raycast
+    from deep_rl_grasping_tpu_torch.training import trainer
+    from deep_rl_grasping_tpu_torch.utils import config as cfg_util
+
+    config = cfg_util.load_config(os.path.join(ENCODER_BUNDLE, "config.yaml"))
+    enc = trainer._maybe_load_encoder(config, dev)
+    enc_cpu = trainer._maybe_load_encoder(config, "cpu")
+    env = GraspEnv(config, evaluate=True, validate=True, device=dev, encoder=enc)
+    st = env_state_from_numpy(scene_arrays, dev)
+    cam_pos, cam_R = raycast.camera_pose_from_gripper(st.sim.gripper.q, st.cam_t, st.cam_R)
+    args = (st.sim, env.sim_params, cam_pos, cam_R, st.intrinsics, env.im_h, env.im_w,
+            env.near, env.far)
+    with torch.no_grad():
+        d_k, s_k = raster_cuda.render_batch(*args)
+        img_k = env.encoder_input(d_k, s_k)[..., None]
+        img_p = env.encoder_input(*raycast.render(*args))[..., None]
+        z = enc(img_k)
+        z_cpu = enc_cpu(img_k.cpu())
+        z_plain = enc(img_p)
+        enc_ms = cuda_ms(lambda: enc(img_k), 20, torch)
+        obs_ms = cuda_ms(lambda: enc(env.encoder_input(d_k, s_k)[..., None]), 20, torch)
+    gap = float((z.cpu() - z_cpu).abs().max())
+    render_gap = (z - z_plain).abs().amax(-1)
+    log("encoder", B=z.shape[0], encoding_dim=z.shape[1], encoder_dir=config["sensor"][
+            "encoder_dir"], card_vs_cpu=gap, tol=ENCODER_TOL, latent_max_abs=float(z.abs().max()),
+        masked_px_nonzero_frac=float((img_k > 0).float().mean()),
+        mask_flips_kernel_vs_plain=int(((img_k > 0) != (img_p > 0)).sum()),
+        kept_depth_max_abs_kernel_vs_plain=float(
+            torch.where((img_k > 0) & (img_p > 0), img_k - img_p, 0.0).abs().max()),
+        latent_gap_kernel_vs_plain_render={"max": float(render_gap.max()),
+                                           "median_env": float(render_gap.median()),
+                                           "envs_differing": int((render_gap > 0).sum())},
+        encoder_ms_per_control_step=enc_ms, mask_and_encoder_ms=obs_ms, timing="cuda_events")
+    if not (bool(torch.isfinite(z).all()) and gap <= ENCODER_TOL):
+        raise RuntimeError(f"encoder on the card disagrees with the CPU: {gap}")
+
+
 def kernel_entry(name, source, replaces, launches, launches_by_path, max_abs_err, timing,
                  **extra):
     """One entry of the `kernels` line from (device ms, plain ms, operations,
@@ -501,11 +673,10 @@ def main():
         return 1
     sys.path.insert(0, REPO)
     try:
-        from deep_rl_grasping_tpu_torch.envs.grasp_env import GraspEnv, env_state_from_numpy
+        from deep_rl_grasping_tpu_torch.envs.grasp_env import GraspEnv
         from deep_rl_grasping_tpu_torch.ops import build, raster_cuda, solver_cuda
-        from deep_rl_grasping_tpu_torch.training import train, trainer
+        from deep_rl_grasping_tpu_torch.training import train
         from deep_rl_grasping_tpu_torch.utils import config as cfg_util
-        from deep_rl_grasping_tpu_torch.utils import io_utils
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
         return 1
@@ -576,11 +747,10 @@ def main():
     res = train.main(["run", "--npz", BUNDLE, "--episodes", str(EPISODES)])
     launches = read_counts(solver_cuda, raster_cuda)
     sr = res["success_rate"]
-    band = 2.0 * (0.86 * 0.14 / EPISODES) ** 0.5
     log("eval", episodes=res["episodes"], success_rate=sr, mean_return=res["mean_return"],
         mean_length=res["mean_length"], control_steps=res["control_steps"],
         wall_seconds=res["wall_seconds"], launches=launches,
-        jax_reference_val=0.86, band_2sigma=[0.86 - band, 0.86 + band])
+        jax_reference_val=JAX_VAL[BUNDLE], band_2sigma=band_2sigma(JAX_VAL[BUNDLE]))
     if res["episodes"] != EPISODES or not 0.0 <= sr <= 1.0 or not np.isfinite(res["mean_return"]):
         raise RuntimeError(f"evaluation result is malformed: {res}")
     if min(launches["solver"], launches["raster"]) <= 0:
@@ -589,85 +759,51 @@ def main():
     # ---- 5b. the same bundle from the JAX package's own 100 validation
     # scenes (its PRNGKey(1) reset), twice: a check of scene luck against
     # the JAX figure, and of determinism (both runs must agree exactly)
-    config_b, actor_b, norm_b = train.load_bundle_actor(BUNDLE, dev)
     with np.load(SCENES) as data:
         scene_arrays = {k[len("scene."):]: data[k] for k in data.files if k.startswith("scene.")}
-    same = []
-    for _ in range(2):
-        evaluator = trainer.Evaluator(config_b, dev)
-        t0 = time.perf_counter()
-        r = evaluator.evaluate(actor_b, norm_b, n_episodes=EPISODES,
-                               initial_states=env_state_from_numpy(scene_arrays, dev))
-        torch.cuda.synchronize()
-        same.append(dict(r, wall_seconds=time.perf_counter() - t0))
+    same = same_scene_evals(BUNDLE, scene_arrays, dev)
     log("eval_same_scenes", scenes=SCENES,
         success_rate=same[0]["success_rate"], mean_return=same[0]["mean_return"],
         episodes=same[0]["episodes"], control_steps=same[0]["control_steps"],
-        wall_seconds=[x["wall_seconds"] for x in same],
-        repeat_equal=same[0]["success_rate"] == same[1]["success_rate"]
-        and same[0]["mean_return"] == same[1]["mean_return"],
-        torch_scenes_success_rate=sr, jax_reference_val=0.86,
-        band_2sigma=[0.86 - band, 0.86 + band])
-    if same[0]["episodes"] != EPISODES or not np.isfinite(same[0]["mean_return"]):
-        raise RuntimeError(f"same-scene evaluation result is malformed: {same[0]}")
-    if any(same[0][k] != same[1][k] for k in ("success_rate", "mean_return", "mean_length")):
-        raise RuntimeError(f"two evaluations from the same scenes differ: {same}")
+        wall_seconds=[x["wall_seconds"] for x in same], repeat_equal=True,
+        torch_scenes_success_rate=sr, jax_reference_val=JAX_VAL[BUNDLE],
+        band_2sigma=band_2sigma(JAX_VAL[BUNDLE]))
 
-    # ---- 6. train: `train` on the RGB-D flagship at full width, launches counted
-    cfg = cfg_util.load_config(TRAIN_CONFIG)
-    tpu, sac_cfg = cfg["tpu"], cfg["SAC"]
-    # the demo ring keeps the capacity the uncut config gives it
-    tpu.setdefault("demo_capacity", tpu["demo_frames"])
-    for (block, key), value in TRAIN_CUTS.items():
-        cfg[block][key] = value
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        cfg_path = os.path.join(tmp, "config.yaml")
-        io_utils.save_yaml(cfg, cfg_path)
-        model_dir = os.path.join(tmp, "run")
-        log("train_start", config=TRAIN_CONFIG,
-            cuts={f"{b}.{k}": v for (b, k), v in TRAIN_CUTS.items()},
-            num_envs=tpu["num_envs"], updates_per_step=tpu["updates_per_step"],
-            batch_size=sac_cfg["batch_size"], demo_fraction=tpu["demo_fraction"],
-            buffer_size=sac_cfg["buffer_size"], demo_capacity=tpu["demo_capacity"],
-            layers=sac_cfg["layers"])
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts(solver_cuda, raster_cuda)
-        tr = train.main(["train", "--config", cfg_path, "--algo", "SAC", "--model_dir",
-                         model_dir, "--seed", "0"])
-        train_launches = read_counts(solver_cuda, raster_cuda)
-        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        (env_s, n_iter), (upd_s, n_upd_iter) = tr["phase_seconds"]["env"], \
-            tr["phase_seconds"]["update"]
-        n_updates = tr["updates"]
-        losses = {k: tr["metrics"].get(k) for k in ("critic_loss", "actor_loss", "bc_loss",
-                                                    "alpha_loss", "q_target_mean", "entropy")}
-        log("train", frames=tr["frames"], done=tr["done"], wall_seconds=tr["wall_seconds"],
-            iterations=n_iter, updates=n_updates,
-            env_frames_per_s_of_the_step=tpu["num_envs"] / (env_s / n_iter),
-            iteration_frames_per_s=n_iter * tpu["num_envs"] / (env_s + upd_s),
-            end_to_end_frames_per_s=tr["frames"] / tr["wall_seconds"],
-            ms_per_env_step=env_s / n_iter * 1e3,
-            ms_per_sac_update=upd_s / max(n_updates, 1) * 1e3,
-            ms_updates_per_iteration=upd_s / max(n_upd_iter, 1) * 1e3,
-            curriculum_lambda=tr["curriculum_lambda"], success_rate=tr["success_rate"],
-            episodes=tr["episodes"], losses=losses, eval=tr["eval"],
-            max_memory_allocated_gib=peak_gib, launches=train_launches,
-            checkpoint_step=tr["checkpoint_step"])
-        if (not tr["done"] or tr["frames"] != TRAIN_CUTS[("SAC", "total_timesteps")]
-                or n_updates != n_iter * tpu["updates_per_step"]
-                or not all(v is not None and np.isfinite(v) for v in losses.values())):
-            raise RuntimeError(f"training run is malformed: {tr}")
-        if min(train_launches["solver"], train_launches["raster_shade"]) <= 0:
-            raise RuntimeError(f"a kernel of the train path was not launched: {train_launches}")
+    # ---- 6-7. train: `train` on the RGB-D flagship at full width, launches
+    # counted; then `run --model` on its checkpoint
+    train_launches = train_and_run("train", TRAIN_CONFIG, "raster_shade", "run_model")
 
-        # ---- 7. `run --model` on the checkpoint the training run wrote
-        reset_counts(solver_cuda, raster_cuda)
-        ev = train.main(["run", "--model", model_dir, "--episodes", str(EPISODES)])
-        log("run_model", episodes=ev["episodes"], success_rate=ev["success_rate"],
-            mean_return=ev["mean_return"], wall_seconds=ev["wall_seconds"],
-            launches=read_counts(solver_cuda, raster_cuda))
-        if ev["episodes"] != EPISODES or not np.isfinite(ev["mean_return"]):
-            raise RuntimeError(f"run --model result is malformed: {ev}")
+    # ---- 8. the encoder: card vs CPU, kernel's render vs the plain one
+    encoder_check(scene_arrays, dev)
+
+    # ---- 9. eval_encoder: `run --npz` of the encoder-latent bundle through
+    # the entry point, launches counted; then twice from the JAX package's
+    # validation scenes, which are those of the r5c bundle (ENCODER_BUNDLE)
+    reset_counts(solver_cuda, raster_cuda)
+    res_e = train.main(["run", "--npz", ENCODER_BUNDLE, "--episodes", str(EPISODES)])
+    enc_launches = read_counts(solver_cuda, raster_cuda)
+    same_e = same_scene_evals(ENCODER_BUNDLE, scene_arrays, dev)
+    sr_e, band_e = same_e[0]["success_rate"], band_2sigma(JAX_VAL[ENCODER_BUNDLE])
+    log("eval_encoder", bundle=ENCODER_BUNDLE, episodes=res_e["episodes"],
+        torch_scenes_success_rate=res_e["success_rate"],
+        torch_scenes_mean_return=res_e["mean_return"], mean_length=res_e["mean_length"],
+        control_steps=res_e["control_steps"], wall_seconds=res_e["wall_seconds"],
+        depth_bundle_wall_seconds=res["wall_seconds"], launches=enc_launches, scenes=SCENES,
+        success_rate=sr_e, mean_return=same_e[0]["mean_return"],
+        same_scene_wall_seconds=[x["wall_seconds"] for x in same_e],
+        depth_bundle_same_scene_wall_seconds=[x["wall_seconds"] for x in same],
+        repeat_equal=True, jax_reference_val=JAX_VAL[ENCODER_BUNDLE], band_2sigma=band_e,
+        in_band=band_e[0] <= sr_e <= band_e[1])
+    if (res_e["episodes"] != EPISODES or not 0.0 <= res_e["success_rate"] <= 1.0
+            or not np.isfinite(res_e["mean_return"])):
+        raise RuntimeError(f"evaluation of {ENCODER_BUNDLE} is malformed: {res_e}")
+    if min(enc_launches["solver"], enc_launches["raster"]) <= 0:
+        raise RuntimeError(f"a kernel of the eval_encoder path was not launched: {enc_launches}")
+
+    # ---- 10. train_encoder_latent: `train` on latents at full width, then
+    # `run --model` on its checkpoint
+    latent_launches = train_and_run("train_encoder_latent", ENCODER_TRAIN_CONFIG, "raster",
+                                    "run_model_encoder_latent")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
@@ -677,7 +813,9 @@ def main():
     # from: the solver and the shade launch at the train path's (B=128),
     # the depth + seg launch at the eval path's (B=100)
     src = "deep_rl_grasping_tpu_torch/csrc/"
-    by_path = lambda key: {"eval": launches[key], "train": train_launches[key]}
+    by_path = lambda key: {"eval": launches[key], "train": train_launches[key],
+                           "eval_encoder": enc_launches[key],
+                           "train_encoder_latent": latent_launches[key]}
     kernels = [
         kernel_entry("solver_kernel", src + "solver.cu",
                      "deep_rl_grasping_tpu/ops/solver_pallas.py:107", train_launches["solver"],

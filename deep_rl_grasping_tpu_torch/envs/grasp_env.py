@@ -11,8 +11,16 @@ observations), then the curriculum window update. On CUDA tensors both go
 through the CUDA kernels; on CPU tensors through their plain versions.
 Training envs draw a randomized camera per episode (grasp_env.py:198-222).
 
-Not ported yet: the simplified task's three-call step (:592-606), encoder
-observations, table clearing.
+Three observation modes: depth (64, 64, 2), RGB-D (64, 64, 5), and the
+encoder latent (encoding_dim + 1,) when neither image mode is set
+(grasp_env.py:286-323): the depth image with the support, the tray walls
+and the gripper masked out by the render's seg ids goes through the
+trained encoder the caller passes in (training/train_encoder.py), the
+actuator observation and, with `time_feature`, the remaining-time fraction
+are appended.
+
+Not ported yet: the simplified task's three-call step (:592-606), table
+clearing.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import torch
 from deep_rl_grasping_tpu_torch.envs import actuator as act
 from deep_rl_grasping_tpu_torch.envs import curriculum as curr
 from deep_rl_grasping_tpu_torch.envs import rewards as rew
+from deep_rl_grasping_tpu_torch.envs import wrappers
 from deep_rl_grasping_tpu_torch.ops import raster_cuda, solver_cuda
 from deep_rl_grasping_tpu_torch.render import raycast
 from deep_rl_grasping_tpu_torch.sim import objects as objlib
@@ -86,10 +95,25 @@ def env_state_from_numpy(arrays, device="cpu") -> EnvState:
         **{f: t(arrays[f], kinds.get(f, torch.float32)) for f in _ENV_FIELDS})
 
 
-class GraspEnv:
-    """Static task configuration + batched transition functions."""
+def observation_shape(config):
+    """The observation shape of a (defaults-filled) config's env
+    (grasp_env.py:187-194): (H, W, 2) depth, (H, W, 5) RGB-D, else
+    (encoding_dim + 1,) latents, one more with `time_feature`."""
+    if config.get("depth_observation") or config.get("full_observation"):
+        info = io_utils.load_yaml(cfg_util.resolve_path(config["sensor"]["camera_info"]))
+        return (int(info["height"]), int(info["width"]),
+                5 if config.get("full_observation") else 2)
+    d = int(config.get("encoding_dim", 100)) + 1
+    return (d + 1,) if config.get("time_feature") else (d,)
 
-    def __init__(self, config, evaluate=False, test=False, validate=False, device="cuda"):
+
+class GraspEnv:
+    """Static task configuration + batched transition functions. `encoder`
+    (depth images (B, H, W, 1) -> latents (B, encoding_dim)) is required
+    for encoder-latent observations and unused otherwise."""
+
+    def __init__(self, config, evaluate=False, test=False, validate=False, device="cuda",
+                 encoder=None):
         config = cfg_util.load_config(config)
         self.config = config
         self.evaluate = evaluate
@@ -98,10 +122,19 @@ class GraspEnv:
         self.simplified = bool(config["simplified"])
         self.depth_obs = bool(config.get("depth_observation", False))
         self.full_obs = bool(config.get("full_observation", False))
-        if self.simplified or not (self.depth_obs or self.full_obs):
-            raise NotImplementedError(
-                "the port runs the full task with depth or RGB-D observations only")
+        if self.simplified:
+            raise NotImplementedError("the simplified task is not ported yet "
+                                      "(ROADMAP Queue 1 item 5)")
+        self.image_obs = self.depth_obs or self.full_obs
+        self.encoding_dim = int(config.get("encoding_dim", 100))
+        if not self.image_obs and getattr(encoder, "encoding_dim", None) != self.encoding_dim:
+            raise ValueError(f"encoder-latent observations need an encoder of "
+                             f"{self.encoding_dim} latents, got {encoder!r}")
+        self.encoder = encoder
         self.time_horizon = int(config["time_horizon"])
+        # the remaining-time feature goes on flat observations only
+        # (grasp_env.py:95-97)
+        self.time_feature = bool(config.get("time_feature", False)) and not self.image_obs
         self.actuator_spec = act.ActuatorSpec.from_config(config)
         self.reward_spec = rew.RewardSpec.from_config(config)
         if self.reward_spec.table_clearing:
@@ -147,14 +180,11 @@ class GraspEnv:
         self.randomize = sensor_cfg.get("randomize") if not evaluate else None
         self.rgb_scale = float(sensor_cfg.get("rgb_scale", 255.0))
         self.gripper_substeps = int(tpu.get("gripper_substeps", 48))
+        self.obs_shape = observation_shape(config)
 
     @property
     def action_dim(self):
         return self.actuator_spec.action_dim
-
-    @property
-    def obs_shape(self):
-        return (self.im_h, self.im_w, 5 if self.full_obs else 2)
 
     # ------------------------------------------------------------------ camera
 
@@ -213,13 +243,33 @@ class GraspEnv:
 
     # ------------------------------------------------------------------ obs
 
-    def assemble_obs(self, state: EnvState, depth, rgb=None):
+    def encoder_input(self, depth, seg):
+        """The encoder's input (sensor.py:206-230, grasp_env.py:287-295): the
+        depth image with every pixel zeroed whose seg id is 0 (the plane) or
+        the gripper's, and on OnTable also 1 or 2 (table, tray); ids as in
+        render/raycast.py. (B, H, W)."""
+        gripper_id = self.max_slots + 3 if self.sim_params.has_tray else self.max_slots + 1
+        drop = (seg == 0) | (seg == gripper_id)
+        if self.scene_type == "OnTable":
+            drop |= (seg == 1) | (seg == 2)
+        return torch.where(drop, torch.zeros_like(depth), depth)
+
+    def assemble_obs(self, state: EnvState, depth, rgb=None, seg=None):
         """Image observation (robot.py:183-205): depth, then a channel of
         zeros with the actuator width at pixel [0, 0]; RGB-D observations
-        put rgb * rgb_scale first. (B, H, W, 2) or (B, H, W, 5)."""
-        pad = torch.zeros_like(depth)
+        put rgb * rgb_scale first. (B, H, W, 2) or (B, H, W, 5). Latent
+        observation (needs `seg`): the encoded masked depth, the actuator
+        observation and, with `time_feature`, the remaining time;
+        (B, encoding_dim + 1 [+ 1])."""
         width = physics.gripper_width(state.sim.gripper.q)
         a_obs = act.actuator_obs(self.actuator_spec, width, state.sim.gripper.q[:, 2])
+        if not self.image_obs:
+            enc = self.encoder(self.encoder_input(depth, seg)[..., None])
+            obs = torch.cat([enc, a_obs], -1)
+            if self.time_feature:
+                obs = wrappers.append_time_feature(obs, state.episode_step, self.time_horizon)
+            return obs
+        pad = torch.zeros_like(depth)
         pad[:, 0, 0] = a_obs[:, 0]
         if self.full_obs:
             return torch.cat([rgb * self.rgb_scale, depth[..., None], pad[..., None]], -1)
@@ -320,7 +370,8 @@ class BatchedGraspEnv:
         if env.full_obs:
             rgb, depth, _seg = out
             return env.assemble_obs(states, depth, rgb)
-        return env.assemble_obs(states, out[0])
+        depth, seg = out
+        return env.assemble_obs(states, depth, seg=seg)
 
     def step(self, states: EnvState, actions, curriculum: curr.CurriculumState):
         """One control step for every env at the curriculum's lambda.

@@ -15,7 +15,8 @@ the eval cadence (protocol eval plus the eval at the training lambda),
 checkpoints and the best model, SIGTERM handling and the `done:` /
 `stopped:` marker. `run` evaluates a checkpoint this port wrote (`--model`,
 latest or `-b` best) or a committed SAC policy bundle (`--npz`) on the
-100-episode protocol (train.py:474).
+100-episode protocol (train.py:474). Depth, RGB-D and encoder-latent
+observations (the CNN or the MLP torso, as the config says) are all taken.
 
 Both run on the card unless `--device cpu` is given; with no card and no
 `--device cpu` they stop with an error instead of falling back.
@@ -38,6 +39,7 @@ import torch
 
 from deep_rl_grasping_tpu_torch.algos.normalize import NormalizerState, RunningMeanStd
 from deep_rl_grasping_tpu_torch.envs.actuator import ActuatorSpec
+from deep_rl_grasping_tpu_torch.envs.grasp_env import observation_shape
 from deep_rl_grasping_tpu_torch.models.networks import SACActor
 from deep_rl_grasping_tpu_torch.training import callbacks as cb
 from deep_rl_grasping_tpu_torch.training.trainer import Evaluator, Trainer
@@ -268,15 +270,13 @@ def train(args):
                 checkpoint_step=ckpt.latest_step())
 
 
-def _actor_for(config, obs_shape):
+def _actor_for(config):
+    """The SAC actor a config trains: the CNN torso on image observations,
+    the MLP torso on latents."""
+    obs_shape = observation_shape(config)
     layers = tuple(config.get("SAC", {}).get("layers", [64, 64]))
     action_dim = ActuatorSpec.from_config(config).action_dim
-    return SACActor(obs_shape, action_dim, layers, image_obs=True)
-
-
-def _obs_shape(config):
-    info = io_utils.load_yaml(cfg_util.resolve_path(config["sensor"]["camera_info"]))
-    return (int(info["height"]), int(info["width"]), 5 if config.get("full_observation") else 2)
+    return SACActor(obs_shape, action_dim, layers, image_obs=len(obs_shape) == 3)
 
 
 def load_bundle_actor(model_dir, device):
@@ -286,9 +286,7 @@ def load_bundle_actor(model_dir, device):
     algo = config.get("algorithm", "sac").upper()
     if algo != "SAC":
         raise SystemExit(f"the port evaluates SAC bundles only (bundle algo: {algo})")
-    if not (config.get("depth_observation") or config.get("full_observation")):
-        raise SystemExit("the port evaluates image-observation bundles only")
-    actor = _actor_for(config, _obs_shape(config))
+    actor = _actor_for(config)
     actor, normalizer, _meta = policy_io.load_policy(model_dir, actor, device)
     actor.eval()
     return config, actor, normalizer
@@ -302,7 +300,7 @@ def load_checkpoint_actor(model_dir, device, best=False):
         raise SystemExit("the port evaluates SAC checkpoints only")
     ckpt = cb.Checkpointer(model_dir)
     bundle = ckpt.restore_best(device) if best else ckpt.restore(device=device)
-    actor = _actor_for(config, _obs_shape(config)).to(device)
+    actor = _actor_for(config).to(device)
     actor.load_state_dict(bundle["algo_state"]["actor"])
     actor.eval()
     rms = lambda d: RunningMeanStd(mean=d["mean"], var=d["var"], count=d["count"])

@@ -16,6 +16,12 @@ autograd. Differences from the JAX package, outcome unchanged:
   the JAX package computes it and throws it away; the metrics of such an
   iteration are NaN.
 
+Encoder-latent observations load the trained encoder named by
+`sensor.encoder_dir` (`_maybe_load_encoder`, trainer.py:68-87) and hand it
+to the training env and the evaluation env alike. Where the JAX package
+falls back to a downsampled-depth stand-in when the directory or its
+weights are missing (grasp_env.py:298-311), the port refuses.
+
 Evaluation scenes use a generator seeded with 1 (the JAX package uses
 PRNGKey(1); torch cannot reproduce that stream, so the scenes differ but the
 protocol is the same). The prioritized replay branch is not ported yet.
@@ -24,6 +30,7 @@ protocol is the same). The prioritized replay branch is not ported yet.
 from __future__ import annotations
 
 import math
+import os
 import time
 from dataclasses import dataclass
 
@@ -36,6 +43,7 @@ from deep_rl_grasping_tpu_torch.envs import curriculum as curr_mod
 from deep_rl_grasping_tpu_torch.envs import scripted
 from deep_rl_grasping_tpu_torch.envs.grasp_env import BatchedGraspEnv, EnvState, GraspEnv
 from deep_rl_grasping_tpu_torch.sim.types import _Replace
+from deep_rl_grasping_tpu_torch.training.train_encoder import load_trained_encoder
 from deep_rl_grasping_tpu_torch.utils import config as cfg_util
 
 SCENE_SEED = 1
@@ -66,8 +74,27 @@ def refuse_unported(tpu_cfg):
             "yet (ROADMAP Queue 1 item 9); set it to 1")
 
 
+def _maybe_load_encoder(config, device):
+    """The trained encoder for encoder-latent observations (the
+    EncodedDepthImgSensor's weights, reference sensor.py:186-196), on
+    `device`; None for image observations. Refuses when
+    `sensor.encoder_dir` is unset or holds no `weights.npz`."""
+    if config.get("depth_observation") or config.get("full_observation"):
+        return None
+    enc_dir = config.get("sensor", {}).get("encoder_dir")
+    if not enc_dir:
+        raise ValueError("encoder-latent observations need sensor.encoder_dir (a trained "
+                         "encoder such as encoder_files/full_r4); the port has no stand-in")
+    path = cfg_util.resolve_path(enc_dir)
+    if not os.path.exists(os.path.join(path, "weights.npz")):
+        raise ValueError(f"sensor.encoder_dir {enc_dir} ({path}) holds no weights.npz; the "
+                         "port has no stand-in for a missing encoder")
+    return load_trained_encoder(path, device)
+
+
 class EvalMixin:
-    """Needs `self.config`, `self.normalize` and `self.device`."""
+    """Needs `self.config`, `self.normalize`, `self.device` and
+    `self.encoder`."""
 
     def evaluate(self, actor, normalizer, n_episodes=10, validate=True, stochastic=False,
                  lam=None, initial_states=None):
@@ -78,7 +105,8 @@ class EvalMixin:
         `initial_states` (an `EnvState` of `n_episodes` envs on the device)
         starts the protocol from given scenes instead of drawing them, for
         example the JAX package's own evaluation scenes."""
-        eval_env = GraspEnv(self.config, evaluate=True, validate=validate, device=self.device)
+        eval_env = GraspEnv(self.config, evaluate=True, validate=validate, device=self.device,
+                            encoder=self.encoder)
         scene_gen = torch.Generator(device=self.device)
         scene_gen.manual_seed(SCENE_SEED)
         act_gen = torch.Generator(device=self.device)
@@ -128,6 +156,7 @@ class Evaluator(EvalMixin):
         self.config = cfg_util.load_config(config)
         self.normalize = bool(self.config.get("normalize", False))
         self.device = torch.device(device)
+        self.encoder = _maybe_load_encoder(self.config, self.device)
 
 
 @dataclass
@@ -188,7 +217,8 @@ class Trainer(EvalMixin):
         self.device = torch.device(device)
         tpu_cfg = self.config["tpu"]
         refuse_unported(tpu_cfg)
-        self.env = GraspEnv(self.config, device=self.device)
+        self.encoder = _maybe_load_encoder(self.config, self.device)
+        self.env = GraspEnv(self.config, device=self.device, encoder=self.encoder)
         self.num_envs = int(tpu_cfg.get("num_envs", 128))
         gen = lambda k: torch.Generator(device=self.device).manual_seed(seed * 4 + k)
         self.env_gen, self.learn_gen, self.demo_gen = gen(0), gen(1), gen(2)

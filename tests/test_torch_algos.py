@@ -11,7 +11,8 @@
   `policy_io` gives the Flax outputs at bf16 tolerance (5e-2 absolute +
   relative: both frameworks compute the trunk in bfloat16 but round at
   other places), for image (non-square, 5-channel) and flat observations.
-* One `SAC.update`: from a Flax `SACState` carried across with
+* One `SAC.update`, on image observations and on (101,) encoder latents:
+  from a Flax `SACState` carried across with
   `policy_io.load_sac_state` and one batch with a demonstration tail, with
   JAX's two normal draws reproduced from the same key and handed to the
   port. The networks run in float32 on both sides for this check (the
@@ -200,9 +201,11 @@ def float32_networks(monkeypatch):
     monkeypatch.setattr(tnet, "CDTYPE", torch.float32)
 
 
-@pytest.fixture(scope="module")
-def update_inputs():
-    obs_shape, N, A = (36, 36, 5), 16, 5
+@pytest.fixture(scope="module", params=[(36, 36, 5), (101,)], ids=["image", "latent"])
+def update_inputs(request):
+    """One batch of image observations (the CNN torso) or of encoder
+    latents (the MLP torso), 16 rows with a 4-row demonstration tail."""
+    obs_shape, N, A = request.param, 16, 5
     rng = np.random.default_rng(6)
     batch = dict(
         obs=rng.normal(size=(N,) + obs_shape).astype(np.float32),

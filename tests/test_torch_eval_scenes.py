@@ -33,6 +33,13 @@ summation orders; the gaps seen are under 1e-7 m).
 Rebuild the file (JAX on the CPU, about two minutes):
 
     JAX_PLATFORMS=cpu python tests/test_torch_eval_scenes.py --rebuild
+
+Another bundle whose config differs in no scene, curriculum, camera or
+simulation key starts from the same scenes; check that it does (about a
+minute; exit code 0 when every array is equal):
+
+    JAX_PLATFORMS=cpu python tests/test_torch_eval_scenes.py \
+        --compare trained/sac_encoder_flagship_r5
 """
 
 import os
@@ -57,35 +64,59 @@ N_EPISODES = 100  # the protocol
 N_CHECK = 8       # envs whose observation and first step are stored
 
 
-def build_scenes(path=SCENES_R5C_VAL):
-    """Build the npz with the JAX package (run by hand, see the docstring)."""
+def _flat(s):
+    """A JAX env state as the npz's flat arrays."""
     import dataclasses
 
+    out = {}
+    for part in ("gripper", "objects"):
+        sub = getattr(s.sim, part)
+        for f in dataclasses.fields(sub):
+            out[f"{part}.{f.name}"] = np.asarray(getattr(sub, f.name))
+    for f in tenv._ENV_FIELDS:
+        out[f] = np.asarray(getattr(s, f))
+    for f in tenv._REWARD_FIELDS:
+        out[f"reward_state.{f}"] = np.asarray(getattr(s.reward_state, f))
+    return out
+
+
+def jax_val_scenes(bundle):
+    """The JAX package's eval env of a bundle's config and the 100 states
+    its protocol evaluation starts from."""
     import jax
     import jax.numpy as jnp
 
     from deep_rl_grasping_tpu.envs import grasp_env as jenv
     from deep_rl_grasping_tpu.utils import config as jcfg
-    from tests.test_torch_env import _pallas_obs
 
-    cfg = jcfg.load_config(os.path.join(BUNDLE, "config.yaml"))
+    cfg = jcfg.load_config(os.path.join(bundle, "config.yaml"))
     je = jenv.GraspEnv(cfg, evaluate=True, validate=True)
     jb = jenv.BatchedGraspEnv(je, N_EPISODES, use_pallas=False)
     cur = jb.init_curriculum()
     cur = cur.replace(lam=jnp.asarray(1.0, jnp.float32))
     states, _ = jax.jit(jb.reset)(jax.random.PRNGKey(1), cur)
+    return cfg, je, states
 
-    def flat(s):
-        out = {}
-        for part in ("gripper", "objects"):
-            sub = getattr(s.sim, part)
-            for f in dataclasses.fields(sub):
-                out[f"{part}.{f.name}"] = np.asarray(getattr(sub, f.name))
-        for f in tenv._ENV_FIELDS:
-            out[f] = np.asarray(getattr(s, f))
-        for f in tenv._REWARD_FIELDS:
-            out[f"reward_state.{f}"] = np.asarray(getattr(s.reward_state, f))
-        return out
+
+def same_scenes(bundle, path=SCENES_R5C_VAL):
+    """Whether another bundle's JAX validation scenes are the file's
+    (run by hand, see the docstring); returns the keys that differ."""
+    _, _, states = jax_val_scenes(bundle)
+    got, data = _flat(states), np.load(path)
+    stored = {k[len("scene."):] for k in data.files if k.startswith("scene.")}
+    return sorted(k for k in stored | set(got) if k not in stored or k not in got
+                  or not np.array_equal(data["scene." + k], got[k]))
+
+
+def build_scenes(path=SCENES_R5C_VAL):
+    """Build the npz with the JAX package (run by hand, see the docstring)."""
+    import jax
+    import jax.numpy as jnp
+
+    from deep_rl_grasping_tpu.envs import grasp_env as jenv
+    from tests.test_torch_env import _pallas_obs
+
+    cfg, je, states = jax_val_scenes(BUNDLE)
 
     first = jax.tree.map(lambda x: x[:N_CHECK], states)
     obs = _pallas_obs(je, first)
@@ -99,8 +130,8 @@ def build_scenes(path=SCENES_R5C_VAL):
     cur8 = jb8.init_curriculum()
     cur8 = cur8.replace(lam=jnp.asarray(1.0, jnp.float32))
     stepped, _, reward, done, _, _ = jax.jit(jb8.step)(first, jnp.asarray(actions), cur8)
-    out = {f"scene.{k}": v for k, v in flat(states).items()}
-    out.update({f"step.{k}": v for k, v in flat(stepped).items()})
+    out = {f"scene.{k}": v for k, v in _flat(states).items()}
+    out.update({f"step.{k}": v for k, v in _flat(stepped).items()})
     out.update({"obs": obs.astype(np.float32), "actions": actions.astype(np.float32),
                 "step.reward": np.asarray(reward), "step.done": np.asarray(done)})
     os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -216,10 +247,17 @@ def test_evaluate_starts_from_given_states(scenes):
 
 
 if __name__ == "__main__":
-    if "--rebuild" not in sys.argv:
-        raise SystemExit(
-            "usage: JAX_PLATFORMS=cpu python tests/test_torch_eval_scenes.py --rebuild")
+    usage = ("usage: JAX_PLATFORMS=cpu python tests/test_torch_eval_scenes.py "
+             "--rebuild | --compare <bundle dir>")
+    if len(sys.argv) < 2 or sys.argv[1] not in ("--rebuild", "--compare"):
+        raise SystemExit(usage)
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    print("wrote", build_scenes())
+    if sys.argv[1] == "--rebuild":
+        print("wrote", build_scenes())
+    else:
+        differ = same_scenes(sys.argv[2])
+        print(f"{sys.argv[2]}: validation scenes", "differ in " + ", ".join(differ) if differ
+              else f"equal to {os.path.relpath(SCENES_R5C_VAL, REPO)}")
+        sys.exit(1 if differ else 0)

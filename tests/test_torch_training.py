@@ -1,7 +1,7 @@
 """The port's `train` entry point, end to end on the CPU at a tiny size.
 
-`train.main(["train", ...])` on the RGB-D and on the depth flagship config,
-each cut to 2 envs, a
+`train.main(["train", ...])` on the RGB-D, the depth and the encoder-latent
+flagship config, each cut to 2 envs, a
 3-step horizon, 16/16 hidden units, a 64-frame replay, 2 updates per
 iteration and 6 chunks of 2 iterations, with demo seeding and refresh, the
 eval cadence and checkpoints all firing, and a curriculum window of 2
@@ -30,7 +30,8 @@ from deep_rl_grasping_tpu_torch.utils import io_utils, tb_events
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.fixture(scope="module", params=["sac_rgbd_flagship.yaml", "sac_full_flagship.yaml"])
+@pytest.fixture(scope="module", params=["sac_rgbd_flagship.yaml", "sac_full_flagship.yaml",
+                                        "sac_encoder_flagship.yaml"])
 def tiny_run(request, tmp_path_factory):
     root = tmp_path_factory.mktemp("train")
     cfg = cfg_util.load_config(os.path.join(REPO, "configs", request.param))
@@ -55,11 +56,7 @@ def tiny_run(request, tmp_path_factory):
                               "--device", "cpu"])
     finally:
         torch.set_num_threads(n)
-    return cfg, model_dir, res, ev, ev_best
-
-
-def bundle_config(model_dir):
-    return io_utils.load_yaml(os.path.join(model_dir, "config.yaml"))
+    return cfg, model_dir, res, ev, ev_best, request.param
 
 
 def _rows(path):
@@ -68,7 +65,7 @@ def _rows(path):
 
 
 def test_train_writes_config_logs_and_checkpoints(tiny_run):
-    cfg, model_dir, res, _, _ = tiny_run
+    cfg, model_dir, res, *_ = tiny_run
     assert res["done"] and res["frames"] == 24
     for sub in ("config.yaml", os.path.join("best_model", "config.yaml")):
         written = io_utils.load_yaml(os.path.join(model_dir, sub))
@@ -104,15 +101,16 @@ def test_train_writes_config_logs_and_checkpoints(tiny_run):
 
 
 def test_run_model_reads_the_checkpoints_back(tiny_run):
-    _, model_dir, res, ev, ev_best = tiny_run
+    _, model_dir, res, ev, ev_best, cfg_path = tiny_run
     for r in (ev, ev_best):
         assert r["episodes"] == 2 and r["mean_length"] == 3.0
         assert np.isfinite(r["mean_return"])
     bundle = cb.Checkpointer(model_dir).restore()
     assert bundle["algo_state"]["step"] == res["updates"]
     assert set(bundle) == {"algo_state", "obs_rms", "ret_rms", "curriculum"}
-    channels = 5 if bundle_config(model_dir).get("full_observation") else 2
-    assert bundle["obs_rms"]["mean"].shape == (64, 64, channels)
+    shape = {"sac_rgbd_flagship.yaml": (64, 64, 5), "sac_full_flagship.yaml": (64, 64, 2),
+             "sac_encoder_flagship.yaml": (101,)}[os.path.basename(cfg_path)]
+    assert bundle["obs_rms"]["mean"].shape == shape
     assert float(bundle["curriculum"]["lam"]) == res["curriculum_lambda"]
 
 
