@@ -38,7 +38,21 @@ just before and read just after:
   configs/sac_encoder_flagship.yaml at full width (128 envs, 128 updates
   of batch 256, 101-wide latents, the 1M + 100k replay), cut as TRAIN_CUTS
   cuts the RGB-D run, and `run --model` on its checkpoint
-  (`train_encoder_latent`, `run_model_encoder_latent`).
+  (`train_encoder_latent`, `run_model_encoder_latent`);
+* the simplified task with the discrete learners: first the solver kernel
+  on the simplified step's three calls (the move for 8 substeps, the grasp
+  attempt for 16 with the fingers of half the batch closing, the 5 cm lift
+  for 16), each input made through the kernel as the main path makes it,
+  at B=100 and B=128 (`solver_check` lines with `call`, then
+  `solver_simplified`); then `run --npz trained/bdq_simplified_r5` and
+  `run --npz trained/dqn_simplified_r5` and each bundle twice from the JAX
+  package's validation scenes of these bundles
+  (`deep_rl_grasping_tpu_torch/data/simplified_r5_val_scenes.npz`;
+  `eval_bdq`, `eval_dqn`); then `train` on configs/bdq_simplified.yaml and
+  configs/dqn_simplified.yaml at full width (128 envs, 64 prioritized
+  updates of batch 64 per iteration, the 1M-row ring of 100-wide latents),
+  cut as TRAIN_CUTS cuts the SAC runs, and `run --model` on each
+  checkpoint (`train_bdq`, `run_model_bdq`, `train_dqn`, `run_model_dqn`).
 
 Each phase prints one JSON line with its elapsed seconds. The last three
 lines are the card's name and power limit (nvidia-smi), one JSON object
@@ -76,14 +90,26 @@ TRAIN_CONFIG = os.path.join("configs", "sac_rgbd_flagship.yaml")
 # test_torch_eval_scenes.py --compare trained/sac_encoder_flagship_r5).
 ENCODER_BUNDLE = os.path.join("trained", "sac_encoder_flagship_r5")
 ENCODER_TRAIN_CONFIG = os.path.join("configs", "sac_encoder_flagship.yaml")
-# JAX validation success rates of the two bundles (their PROVENANCE.md)
-JAX_VAL = {BUNDLE: 0.86, ENCODER_BUNDLE: 0.42}
+# The simplified-task bundles (encoder latents, prioritized replay): BDQ
+# with 8 bins per branch, DQN with Discrete(3 x 4). Their configs differ
+# only in the algorithm block, and the JAX package's validation scenes of
+# both are the arrays of SIMP_SCENES (tests/test_torch_eval_scenes.py
+# --compare trained/dqn_simplified_r5).
+BDQ_BUNDLE = os.path.join("trained", "bdq_simplified_r5")
+DQN_BUNDLE = os.path.join("trained", "dqn_simplified_r5")
+SIMP_SCENES = os.path.join("deep_rl_grasping_tpu_torch", "data", "simplified_r5_val_scenes.npz")
+BDQ_TRAIN_CONFIG = os.path.join("configs", "bdq_simplified.yaml")
+DQN_TRAIN_CONFIG = os.path.join("configs", "dqn_simplified.yaml")
+# JAX validation success rates of the bundles (their PROVENANCE.md)
+JAX_VAL = {BUNDLE: 0.86, ENCODER_BUNDLE: 0.42, BDQ_BUNDLE: 0.68, DQN_BUNDLE: 0.60}
 # The only cuts of the training run: frames and cadences, so that seeding,
-# 128 updates per iteration from the first iteration, an eval, a
+# all updates per iteration from the first iteration, an eval, a
 # checkpoint, save_best and a demo refresh each happen. Widths, batch,
-# replay and demo capacities stay the config's.
-TRAIN_CUTS = {("SAC", "total_timesteps"): 2048, ("tpu", "demo_frames"): 2048,
-              ("SAC", "learning_starts"): 2048, ("tpu", "eval_freq"): 1024,
+# replay and demo capacities stay the config's. "ALGO" is the algorithm's
+# own block (SAC, DQN, BDQ); cutting its total_timesteps also shortens the
+# DQN / BDQ epsilon anneal, which spans exploration_fraction of it.
+TRAIN_CUTS = {("ALGO", "total_timesteps"): 2048, ("tpu", "demo_frames"): 2048,
+              ("ALGO", "learning_starts"): 2048, ("tpu", "eval_freq"): 1024,
               ("tpu", "checkpoint_freq"): 1024, ("tpu", "demo_refresh_every"): 1024}
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, at the 700 W limit).
@@ -265,14 +291,16 @@ def solver_check_scenes(env, B, seed):
     return st.replace(gripper=g), gen
 
 
-def solver_check(path, env, B, seed):
+def solver_check(path, env, B, seed, scenes=solver_check_scenes, n_sub=None, call=None):
     """The solver kernel against its plain version on the scenes of
-    `solver_check_scenes(env, B, seed)`: every env within SOLVER_TOL after
-    SHORT_SUBSTEPS substeps, and after the main path's n_substeps all but at
-    most DIVERGING_ENV_FRAC of them (see SOLVER_SEEDS). Logs one line;
-    raises on a disagreement. Returns the states, the plain version's result
-    at n_substeps, the generator (to draw on from) and the largest gap of
-    each output at n_substeps."""
+    `scenes(env, B, seed)` (default `solver_check_scenes`): every env within
+    SOLVER_TOL after SHORT_SUBSTEPS substeps, and after the main path's
+    n_substeps (default the env's gripper_substeps) all but at most
+    DIVERGING_ENV_FRAC of them (see SOLVER_SEEDS). Logs one line, marked
+    with `call` for a call of the simplified step; raises on a
+    disagreement. Returns the states, the plain version's result at
+    n_substeps, the generator (to draw on from) and the largest gap of each
+    output at n_substeps."""
     import torch
 
     from deep_rl_grasping_tpu_torch.ops import solver_cuda
@@ -280,8 +308,9 @@ def solver_check(path, env, B, seed):
     from deep_rl_grasping_tpu_torch.sim.types import FINGER_CLOSED
 
     dev = env.device
-    params, n_sub = env.sim_params, env.gripper_substeps
-    st, gen = solver_check_scenes(env, B, seed)
+    params = env.sim_params
+    n_sub = env.gripper_substeps if n_sub is None else n_sub
+    st, gen = scenes(env, B, seed)
     over, gaps = {}, {}
     for n in (SHORT_SUBSTEPS, n_sub):
         out_k = solver_cuda.run_batched_sim(st, params, n)
@@ -298,7 +327,8 @@ def solver_check(path, env, B, seed):
     diverging = torch.nonzero(over[n_sub]).flatten().tolist()
     grasped = int(((out_p.gripper.finger_target == FINGER_CLOSED)
                    & (physics.gripper_width(out_p.gripper.q) > 0.005)).sum())
-    log("solver_check", path=path, B=B, seed=seed, tol=SOLVER_TOL,
+    log("solver_check", path=path, **({"call": call} if call else {}), B=B, seed=seed,
+        n_substeps=n_sub, tol=SOLVER_TOL,
         max_abs_err={f"{n}_substeps": {name: float(g.max()) for name, g in gaps[n].items()}
                      for n in gaps},
         max_abs_err_outside_diverging_envs={
@@ -307,16 +337,110 @@ def solver_check(path, env, B, seed):
         envs_over_tol_short=torch.nonzero(over[SHORT_SUBSTEPS]).flatten().tolist(),
         diverging_envs={e: {name: float(gaps[n_sub][name][e]) for name in errs}
                         for e in diverging},
-        diverging_cap=int(DIVERGING_ENV_FRAC * B), envs_closing=B - B // 2,
+        diverging_cap=int(DIVERGING_ENV_FRAC * B),
+        envs_closing=int((st.gripper.finger_target == FINGER_CLOSED).sum()),
         envs_holding=grasped)
     if bool(over[SHORT_SUBSTEPS].any()):
         raise RuntimeError(f"solver kernel disagrees with physics.run after {SHORT_SUBSTEPS} "
-                           f"substeps ({path} shapes, seed {seed})")
+                           f"substeps ({path} shapes, {call or 'step'}, seed {seed})")
     if len(diverging) > DIVERGING_ENV_FRAC * B:
         raise RuntimeError(f"solver kernel disagrees with physics.run after {n_sub} substeps "
-                           f"in {len(diverging)} of {B} envs ({path} shapes, seed {seed}): "
-                           f"{errs}")
+                           f"in {len(diverging)} of {B} envs ({path} shapes, {call or 'step'}, "
+                           f"seed {seed}): {errs}")
     return st, out_p, gen, errs
+
+
+SIMP_CALLS = ("move", "grasp", "lift")
+
+
+def simplified_call_inputs(env, B, seed):
+    """The inputs of the simplified step's three solver calls
+    (grasp_env.py:592-606) on B scenes of `env` drawn from `seed`, each made
+    from the one before through the kernel, as the main path makes them:
+    reset scenes settled through the kernel with the second half of the
+    batch lowered to 0.068 m over object slot 0, then random branched
+    actions (the move call's input); the move call's output after the
+    trigger, which closes the fingers of the envs below 0.07 m (the grasp
+    call's input); the grasp call's output with the triggered envs' z
+    target 5 cm up (the lift call's input). Returns {call: (state,
+    n_substeps)}, the number of triggered envs and the generator."""
+    import torch
+
+    from deep_rl_grasping_tpu_torch.ops import solver_cuda
+
+    dev, params = env.device, env.sim_params
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    st = env.reset_env(gen, B, 1.0, settle_substeps=48).sim
+    half = torch.arange(B, device=dev) >= B // 2
+    q = st.gripper.q.clone()
+    q[half, 0:2] = st.objects.pos[half, 0, 0:2]
+    q[half, 2] = 0.068
+    st = st.replace(gripper=st.gripper.replace(q=q, target=q[:, :4].clone()))
+    bins = torch.randint(0, env.actuator_spec.num_actions_pad, (B, 3), generator=gen,
+                         device=dev)
+    move_in, _ = env._apply_action(st, bins)
+    moved = solver_cuda.run_batched_sim(move_in, params, env.move_substeps)
+    grasp_in, trigger, _ = env._simplified_trigger(moved)
+    grasped = solver_cuda.run_batched_sim(grasp_in, params, env.gripper_substeps)
+    lift_in = env._simplified_lift(grasped, trigger)
+    return ({"move": (move_in, env.move_substeps), "grasp": (grasp_in, env.gripper_substeps),
+             "lift": (lift_in, 2 * env.move_substeps)}, int(trigger.sum()), gen)
+
+
+def solver_cost(env, B, n_sub):
+    """(operations, bytes) of one solver call of `n_sub` substeps on B envs."""
+    params = env.sim_params
+    K, S, SC = env.max_slots, params.radii.shape[1], params.oo_radii.shape[1]
+    fl = solver_flops(B, K, S, SC, 5 if params.has_tray else 1, n_sub,
+                      params.solver_iterations, params.pad_inner_iterations,
+                      params.oo_pass_stride)
+    io_bytes = 4 * B * (6 + 6 + 4 + 1 + K * (3 + 4 + 3 + 3 + 1 + S * 4 + SC * 4 + 1 + 3)
+                        + 6 + 6 + K * (3 + 4 + 3 + 3))
+    return fl, io_bytes
+
+
+def simplified_solver_checks(path, env, B, full_step_ms):
+    """The solver kernel on the simplified step's three calls at B envs:
+    `solver_check` on each call's input for each of SOLVER_SEEDS, then the
+    device ms, plain ms and bound of each call on the first seed's inputs.
+    Logs `solver_simplified`; returns {call: (device ms, plain ms,
+    operations, bytes, ms per Python call, substeps)} and the largest
+    error."""
+    import torch
+
+    from deep_rl_grasping_tpu_torch.ops import solver_cuda
+    from deep_rl_grasping_tpu_torch.sim import physics
+
+    params = env.sim_params
+    errs, first, triggered = {}, None, []
+    for seed in SOLVER_SEEDS:
+        inputs, n_trig, gen = simplified_call_inputs(env, B, seed)
+        triggered.append(n_trig)
+        first = first or inputs
+        for call in SIMP_CALLS:
+            st, n = inputs[call]
+            e = solver_check(path, env, B, seed, scenes=lambda *_: (st, gen), n_sub=n,
+                             call=call)[3]
+            errs[call] = max(errs.get(call, 0.0), max(e.values()))
+    timing = {}
+    for call in SIMP_CALLS:
+        st, n = first[call]
+        k_in = solver_cuda.kernel_inputs(st, params)
+        fn = lambda: solver_cuda.run_batch(*k_in, params=params, n_substeps=n)
+        fl, nb = solver_cost(env, B, n)
+        timing[call] = (device_ms(fn, torch), cuda_ms(lambda: physics.run(st, params, n), 2,
+                                                        torch), fl, nb, cuda_ms(fn, 10, torch), n)
+    bound = lambda t: max(t[3] / HBM_BYTES_PER_S, t[2] / FP32_FLOPS_PER_S) * 1e3
+    log("solver_simplified", path=path, B=B, triggered_envs=triggered, timing=TIMING,
+        calls={c: {"n_substeps": first[c][1], "kernel_ms": t[0], "plain_ms": t[1],
+                   "call_ms": t[4], "bound_ms": bound(t), "flops": t[2], "bytes": t[3],
+                   "max_abs_err": errs[c]} for c, t in timing.items()},
+        kernel_ms_per_control_step=sum(t[0] for t in timing.values()),
+        full_task_kernel_ms_per_control_step=full_step_ms)
+    if min(triggered) <= 0:
+        raise RuntimeError(f"no env triggered a grasp in the simplified solver check ({path})")
+    return timing, max(errs.values())
 
 
 def raster_scenes(env, B, sim, gen):
@@ -359,12 +483,7 @@ def kernel_checks(path, env, B):
     solver_ms = device_ms(solver_fn, torch)
     solver_plain_ms = cuda_ms(lambda: physics.run(st, params, n_sub), 2, torch)
     K, S = st.objects.pos.shape[1], params.radii.shape[1]
-    SC = params.oo_radii.shape[1]
-    fl = solver_flops(B, K, S, SC, 5 if params.has_tray else 1, n_sub,
-                      params.solver_iterations, params.pad_inner_iterations,
-                      params.oo_pass_stride)
-    io_bytes = 4 * B * (6 + 6 + 4 + 1 + K * (3 + 4 + 3 + 3 + 1 + S * 4 + SC * 4 + 1 + 3)
-                        + 6 + 6 + K * (3 + 4 + 3 + 3))
+    fl, io_bytes = solver_cost(env, B, n_sub)
     log("solver", path=path, B=B, n_substeps=n_sub, max_abs_err=errs, seeds=SOLVER_SEEDS,
         kernel_ms=solver_ms, timing=TIMING, call_ms=solver_call_ms, plain_ms=solver_plain_ms,
         bound_ms=max(io_bytes / HBM_BYTES_PER_S, fl / FP32_FLOPS_PER_S) * 1e3,
@@ -529,12 +648,14 @@ def same_scene_evals(bundle, scene_arrays, dev):
     return same
 
 
-def train_and_run(phase, config_path, raster_key, run_phase):
-    """`train` on `config_path` at full width with only TRAIN_CUTS cut, into
-    a temporary directory, launches counted from just before to just after;
-    then `run --model` on its checkpoint. Logs `<phase>_start`, `<phase>`
-    and `run_phase`; raises unless the solver and the raster launch
-    `raster_key` were launched. Returns the launch counts."""
+def train_and_run(phase, config_path, raster_key, run_phase, algo="SAC"):
+    """`train --algo algo` on `config_path` at full width with only
+    TRAIN_CUTS cut, into a temporary directory, launches counted from just
+    before to just after; then `run --model` on its checkpoint. Logs
+    `<phase>_start`, `<phase>` and `run_phase`; raises unless the solver
+    and the raster launch `raster_key` were launched, every update ran and
+    (with prioritized replay) priorities changed. Returns the launch
+    counts."""
     import numpy as np
     import torch
 
@@ -544,48 +665,58 @@ def train_and_run(phase, config_path, raster_key, run_phase):
     from deep_rl_grasping_tpu_torch.utils import io_utils
 
     cfg = cfg_util.load_config(config_path)
-    tpu, sac_cfg = cfg["tpu"], cfg["SAC"]
+    tpu, algo_cfg = cfg["tpu"], cfg[algo]
     # the demo ring keeps the capacity the uncut config gives it
     tpu.setdefault("demo_capacity", tpu["demo_frames"])
-    for (block, key), value in TRAIN_CUTS.items():
+    cuts = {(algo if block == "ALGO" else block, key): v for (block, key), v in TRAIN_CUTS.items()}
+    for (block, key), value in cuts.items():
         cfg[block][key] = value
+    prioritized = bool(algo_cfg.get("prioritized_replay", False)) and algo != "SAC"
+    loss_keys = (("critic_loss", "actor_loss", "bc_loss", "alpha_loss", "q_target_mean",
+                  "entropy") if algo == "SAC" else ("loss", "td_abs"))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         cfg_path = os.path.join(tmp, "config.yaml")
         io_utils.save_yaml(cfg, cfg_path)
         model_dir = os.path.join(tmp, "run")
-        log(f"{phase}_start", config=config_path,
-            cuts={f"{b}.{k}": v for (b, k), v in TRAIN_CUTS.items()},
+        extra = {} if algo == "SAC" else {
+            "prioritized_replay": prioritized,
+            "exploration_frames": algo_cfg["exploration_fraction"] * algo_cfg["total_timesteps"],
+            "exploration_final_eps": algo_cfg["exploration_final_eps"]}
+        log(f"{phase}_start", config=config_path, algo=algo,
+            cuts={f"{b}.{k}": v for (b, k), v in cuts.items()},
             num_envs=tpu["num_envs"], updates_per_step=tpu["updates_per_step"],
-            batch_size=sac_cfg["batch_size"], demo_fraction=tpu["demo_fraction"],
-            buffer_size=sac_cfg["buffer_size"], demo_capacity=tpu["demo_capacity"],
-            layers=sac_cfg["layers"])
+            batch_size=algo_cfg["batch_size"], demo_fraction=tpu.get("demo_fraction", 0),
+            buffer_size=algo_cfg["buffer_size"], demo_capacity=tpu["demo_capacity"],
+            layers=algo_cfg["layers"], **extra)
         torch.cuda.reset_peak_memory_stats()
         reset_counts(solver_cuda, raster_cuda)
-        tr = train.main(["train", "--config", cfg_path, "--algo", "SAC", "--model_dir",
+        tr = train.main(["train", "--config", cfg_path, "--algo", algo, "--model_dir",
                          model_dir, "--seed", "0"])
         launches = read_counts(solver_cuda, raster_cuda)
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         (env_s, n_iter), (upd_s, n_upd_iter) = tr["phase_seconds"]["env"], \
             tr["phase_seconds"]["update"]
         n_updates = tr["updates"]
-        losses = {k: tr["metrics"].get(k) for k in ("critic_loss", "actor_loss", "bc_loss",
-                                                    "alpha_loss", "q_target_mean", "entropy")}
-        log(phase, frames=tr["frames"], done=tr["done"], wall_seconds=tr["wall_seconds"],
-            iterations=n_iter, updates=n_updates,
+        losses = {k: tr["metrics"].get(k) for k in loss_keys}
+        log(phase, algo=algo, frames=tr["frames"], done=tr["done"],
+            wall_seconds=tr["wall_seconds"], iterations=n_iter, updates=n_updates,
             env_frames_per_s_of_the_step=tpu["num_envs"] / (env_s / n_iter),
             iteration_frames_per_s=n_iter * tpu["num_envs"] / (env_s + upd_s),
             end_to_end_frames_per_s=tr["frames"] / tr["wall_seconds"],
             ms_per_env_step=env_s / n_iter * 1e3,
-            ms_per_sac_update=upd_s / max(n_updates, 1) * 1e3,
+            ms_per_update=upd_s / max(n_updates, 1) * 1e3,
             ms_updates_per_iteration=upd_s / max(n_upd_iter, 1) * 1e3,
             curriculum_lambda=tr["curriculum_lambda"], success_rate=tr["success_rate"],
             episodes=tr["episodes"], losses=losses, eval=tr["eval"],
+            replay_rows=tr["replay_rows"], rows_off_priority_1=tr["rows_off_priority_1"],
             max_memory_allocated_gib=peak_gib, launches=launches,
             checkpoint_step=tr["checkpoint_step"])
-        if (not tr["done"] or tr["frames"] != TRAIN_CUTS[("SAC", "total_timesteps")]
+        if (not tr["done"] or tr["frames"] != cuts[(algo, "total_timesteps")]
                 or n_updates != n_iter * tpu["updates_per_step"]
                 or not all(v is not None and np.isfinite(v) for v in losses.values())):
             raise RuntimeError(f"training run ({phase}) is malformed: {tr}")
+        if prioritized and not tr["rows_off_priority_1"]:
+            raise RuntimeError(f"prioritized updates of {phase} changed no priority: {tr}")
         if min(launches["solver"], launches[raster_key]) <= 0:
             raise RuntimeError(f"a kernel of the {phase} path was not launched: {launches}")
 
@@ -805,6 +936,64 @@ def main():
     latent_launches = train_and_run("train_encoder_latent", ENCODER_TRAIN_CONFIG, "raster",
                                     "run_model_encoder_latent")
 
+    # ---- 11. the simplified step's three solver calls (move 8, grasp 16,
+    # lift 16 substeps), kernel vs plain on inputs made through the kernel,
+    # at the eval shape (the BDQ bundle's config, B=100) and the train shape
+    # (configs/bdq_simplified.yaml, B=128); their device ms per control
+    # step beside the full task's one launch at the same B
+    from deep_rl_grasping_tpu_torch.training.trainer import (_maybe_load_encoder,
+                                                             set_action_interface)
+
+    simp = {}
+    for path, cfg_path, evaluate, full in (
+            ("eval_simplified", os.path.join(BDQ_BUNDLE, "config.yaml"), True, checks["eval"]),
+            ("train_simplified", BDQ_TRAIN_CONFIG, False, checks["train"])):
+        scfg = cfg_util.load_config(cfg_path)
+        senv = GraspEnv(scfg, evaluate=evaluate, validate=evaluate, device=dev,
+                        encoder=_maybe_load_encoder(scfg, dev))
+        set_action_interface(senv, "BDQ", scfg)
+        B = EPISODES if evaluate else int(scfg["tpu"]["num_envs"])
+        simp[B] = simplified_solver_checks(path, senv, B, full["solver"][0])
+    solver_err = max(solver_err, *(err for _, err in simp.values()))
+
+    # ---- 12. eval_bdq, eval_dqn: `run --npz` of the simplified-task
+    # bundles through the entry point, launches counted; then each twice
+    # from the JAX package's validation scenes of these bundles
+    with np.load(SIMP_SCENES) as data:
+        simp_arrays = {k[len("scene."):]: data[k] for k in data.files if k.startswith("scene.")}
+    simp_launches = {}
+    for phase, bundle in (("eval_bdq", BDQ_BUNDLE), ("eval_dqn", DQN_BUNDLE)):
+        reset_counts(solver_cuda, raster_cuda)
+        res_s = train.main(["run", "--npz", bundle, "--episodes", str(EPISODES)])
+        simp_launches[phase] = read_counts(solver_cuda, raster_cuda)
+        same_s = same_scene_evals(bundle, simp_arrays, dev)
+        sr_s, band_s = same_s[0]["success_rate"], band_2sigma(JAX_VAL[bundle])
+        log(phase, bundle=bundle, episodes=res_s["episodes"],
+            torch_scenes_success_rate=res_s["success_rate"],
+            torch_scenes_mean_return=res_s["mean_return"], mean_length=res_s["mean_length"],
+            control_steps=res_s["control_steps"], wall_seconds=res_s["wall_seconds"],
+            depth_bundle_wall_seconds=res["wall_seconds"],
+            depth_bundle_control_steps=res["control_steps"],
+            launches=simp_launches[phase], scenes=SIMP_SCENES, success_rate=sr_s,
+            mean_return=same_s[0]["mean_return"], same_scene_mean_length=same_s[0]["mean_length"],
+            same_scene_control_steps=same_s[0]["control_steps"],
+            same_scene_wall_seconds=[x["wall_seconds"] for x in same_s], repeat_equal=True,
+            jax_reference_val=JAX_VAL[bundle], band_2sigma=band_s,
+            in_band=band_s[0] <= sr_s <= band_s[1])
+        if (res_s["episodes"] != EPISODES or not 0.0 <= res_s["success_rate"] <= 1.0
+                or not np.isfinite(res_s["mean_return"])):
+            raise RuntimeError(f"evaluation of {bundle} is malformed: {res_s}")
+        if min(simp_launches[phase]["solver"], simp_launches[phase]["raster"]) <= 0:
+            raise RuntimeError(f"a kernel of the {phase} path was not launched: "
+                               f"{simp_launches[phase]}")
+
+    # ---- 13. train_bdq, train_dqn: `train` on the simplified configs at
+    # full width, prioritized, then `run --model` on each checkpoint
+    simp_launches["train_bdq"] = train_and_run("train_bdq", BDQ_TRAIN_CONFIG, "raster",
+                                               "run_model_bdq", algo="BDQ")
+    simp_launches["train_dqn"] = train_and_run("train_dqn", DQN_TRAIN_CONFIG, "raster",
+                                               "run_model_dqn", algo="DQN")
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: n/a",
@@ -815,12 +1004,26 @@ def main():
     src = "deep_rl_grasping_tpu_torch/csrc/"
     by_path = lambda key: {"eval": launches[key], "train": train_launches[key],
                            "eval_encoder": enc_launches[key],
-                           "train_encoder_latent": latent_launches[key]}
+                           "train_encoder_latent": latent_launches[key],
+                           **{p: c[key] for p, c in simp_launches.items()}}
+    bound = lambda t: max(t[3] / HBM_BYTES_PER_S, t[2] / FP32_FLOPS_PER_S) * 1e3
+    # the simplified step's calls, by B: device ms and bound of each
+    simp_calls = {f"B={B}": {c: {"n_substeps": t[5], "device_ms": t[0], "bound_ms": bound(t)}
+                             for c, t in timing.items()}
+                  for B, (timing, _) in simp.items()}
     kernels = [
         kernel_entry("solver_kernel", src + "solver.cu",
                      "deep_rl_grasping_tpu/ops/solver_pallas.py:107", train_launches["solver"],
                      by_path("solver"), solver_err, checks["train"]["solver"],
                      ms_eval_shapes=checks["eval"]["solver"][0],
+                     device_ms_16_substeps={"B=100": checks["eval"]["solver"][0],
+                                            "B=128": checks["train"]["solver"][0]},
+                     bound_ms_16_substeps={"B=100": bound(checks["eval"]["solver"]),
+                                           "B=128": bound(checks["train"]["solver"])},
+                     device_ms_8_substeps={k: v["move"]["device_ms"]
+                                           for k, v in simp_calls.items()},
+                     bound_ms_8_substeps={k: v["move"]["bound_ms"] for k, v in simp_calls.items()},
+                     simplified_calls=simp_calls,
                      registers=solver_res["registers"], local_bytes=solver_res["local_bytes"],
                      shared_bytes=solver_res["shared_bytes_train"]),
         kernel_entry("raster_kernel", src + "raster.cu",

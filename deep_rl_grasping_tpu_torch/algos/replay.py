@@ -1,6 +1,7 @@
-"""Device-resident uniform replay with n-step returns (port of
-deep_rl_grasping_tpu/algos/replay.py: `create` :43, `insert` :68,
-`_valid_range` :84, `_nstep_gather` :90, `sample` :109).
+"""Device-resident replay with n-step returns, uniform or prioritized
+(port of deep_rl_grasping_tpu/algos/replay.py: `create` :43, `insert` :68,
+`_valid_range` :84, `_nstep_gather` :90, `sample` :109,
+`sample_prioritized` :155, `update_priorities` :194).
 
 Observations are stored once, as flat bfloat16 rows (C, prod(obs_shape)) in
 the JAX package's NHWC order; the next observation of frame t is the row one
@@ -11,8 +12,16 @@ insert width. The port writes the ring in place, and keeps the write
 pointer and the fill count as Python integers: every insert has the same
 width, so both are known without reading the device.
 
-Prioritized replay (replay.py:155-195) and ring snapshots (:197-254) are
-not ported yet.
+Prioritized replay (Schaul et al. 2016, proportional): every row has a
+priority; a new row enters at the ring's largest priority (1 in an empty
+ring). `sample_prioritized` draws with replacement from the sampleable
+rows with probability p^alpha / sum p^alpha (the dense categorical of the
+JAX package, here `torch.multinomial` on the learner's generator) and
+weights each drawn row by (N P(i))^-beta / max w; `update_priorities` sets
+the drawn rows to |TD| + 1e-6. Discrete actions are stored as integers
+(the trainer creates the ring with an int32 action column).
+
+Ring snapshots (:197-254) are not ported yet.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ class ReplayBuffer:
     action: torch.Tensor  # (C, *act_shape)
     reward: torch.Tensor  # (C,) float32
     done: torch.Tensor    # (C,) bool
+    priority: torch.Tensor  # (C,) float32 (1 while uniform)
     ptr: int              # next write slot
     size: int             # frames written, saturating at capacity
     batch_stride: int
@@ -46,13 +56,16 @@ def create(capacity, obs_shape, action_shape, batch_stride, obs_dtype=torch.bflo
         action=torch.zeros((capacity,) + tuple(action_shape), dtype=action_dtype, device=device),
         reward=torch.zeros(capacity, device=device),
         done=torch.zeros(capacity, dtype=torch.bool, device=device),
+        priority=torch.ones(capacity, device=device),
         ptr=0, size=0, batch_stride=int(batch_stride), capacity=capacity,
         obs_shape=tuple(obs_shape))
 
 
 def insert(buf: ReplayBuffer, obs, action, reward, done) -> ReplayBuffer:
-    """Write one env batch (batch_stride rows) at the write pointer."""
+    """Write one env batch (batch_stride rows) at the write pointer, at the
+    ring's largest priority."""
     B, p = buf.batch_stride, buf.ptr
+    buf.priority[p:p + B] = buf.priority.max() if buf.size > 0 else 1.0
     buf.obs[p:p + B] = obs.reshape(B, -1).to(buf.obs.dtype)
     buf.action[p:p + B] = action.to(buf.action.dtype)
     buf.reward[p:p + B] = reward
@@ -122,3 +135,43 @@ def sample(buf: ReplayBuffer, gen, batch_size, n_step=1, gamma=0.99, recent_batc
     """Uniform sample of n-step transitions, drawn with `gen`."""
     offs = draw_offsets(buf, gen, batch_size, n_step, recent_batch, recent_window)
     return gather(buf, offs, n_step, gamma)
+
+
+def probabilities(buf: ReplayBuffer, alpha=0.6, n_step=1):
+    """Per ring row, the probability that one prioritized draw picks it:
+    p^alpha over the sampleable rows' sum, 0 for the rest (C,)."""
+    n = _valid_range(buf, n_step)
+    ring = torch.arange(buf.capacity, device=buf.priority.device)
+    valid = torch.remainder(ring - (buf.ptr - buf.size), buf.capacity) < n
+    p = torch.where(valid, torch.clamp(buf.priority, min=1e-12) ** alpha, 0.0)
+    return p / torch.clamp(p.sum(), min=1e-12)
+
+
+def _weights(probs, n, beta):
+    w = (max(n, 1) * probs) ** (-beta)
+    return w / torch.clamp(w.max(), min=1e-12)
+
+
+def importance_weights(buf: ReplayBuffer, idx, alpha=0.6, beta=0.4, n_step=1):
+    """Importance weights (N P(i))^-beta / max w of the ring rows `idx`,
+    N the number of sampleable rows, and their probabilities P(i)."""
+    probs = probabilities(buf, alpha, n_step)[idx]
+    return _weights(probs, _valid_range(buf, n_step), beta), probs
+
+
+def sample_prioritized(buf: ReplayBuffer, gen, batch_size, alpha=0.6, beta=0.4, n_step=1,
+                       gamma=0.99):
+    """Proportional prioritized sample of n-step transitions, with
+    replacement, drawn with `gen`; `weight` holds the importance weights."""
+    probs = probabilities(buf, alpha, n_step)
+    idx = torch.multinomial(probs, batch_size, replacement=True, generator=gen)
+    batch = gather(buf, torch.remainder(idx - (buf.ptr - buf.size), buf.capacity), n_step, gamma)
+    batch["weight"] = _weights(probs[idx], _valid_range(buf, n_step), beta)
+    return batch
+
+
+def update_priorities(buf: ReplayBuffer, idx, td_errors, eps=1e-6) -> ReplayBuffer:
+    """Set the priorities of ring rows `idx` to |TD| + eps (a row drawn
+    twice keeps one of its two values)."""
+    buf.priority[idx] = torch.abs(td_errors).to(buf.priority.dtype) + eps
+    return buf

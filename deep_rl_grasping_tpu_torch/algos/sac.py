@@ -54,6 +54,10 @@ def linear_schedule(init_value, end_value, transition_steps, transition_begin=0)
 
 
 class SAC:
+    METRIC_KEYS = ("critic_loss", "actor_loss", "bc_loss", "bc_gate", "alpha_loss", "alpha",
+                   "entropy", "td_abs", "q_target_mean", "reward_mean", "reward_max",
+                   "done_frac")
+
     def __init__(self, obs_shape, action_dim, config, device="cpu"):
         c = config.get("SAC", {})
         self.device = torch.device(device)

@@ -1,26 +1,33 @@
-"""The full continuous grasping task, batched (port of
-deep_rl_grasping_tpu/envs/grasp_env.py).
+"""The grasping task, batched (port of deep_rl_grasping_tpu/envs/grasp_env.py).
 
 `GraspEnv` holds the static task configuration and the per-env glue
 (action decode, servo targets, reward, time limit, auto-reset, observation
 assembly), all written over a leading env axis. `BatchedGraspEnv.step` is
-the kernel-routed step of grasp_env.py:582-642 for the full task: one
-solver call for `gripper_substeps` (ops/solver_cuda.py) and one render
-(ops/raster_cuda.py: depth + seg, or with the shade for RGB-D
-observations), then the curriculum window update. On CUDA tensors both go
-through the CUDA kernels; on CPU tensors through their plain versions.
-Training envs draw a randomized camera per episode (grasp_env.py:198-222).
+the kernel-routed step of grasp_env.py:582-642. The full task makes one
+solver call for `gripper_substeps` (ops/solver_cuda.py). The simplified
+task (:592-606) makes three: the commanded move for `move_substeps`, the
+grasp attempt (the fingers close where the gripper is below 7 cm) for
+`gripper_substeps`, and a 5 cm lift of the triggered envs for
+`2 * move_substeps`. Then one render (ops/raster_cuda.py: depth + seg, or
+with the shade for RGB-D observations) and the curriculum window update.
+On CUDA tensors both go through the CUDA kernels; on CPU tensors through
+their plain versions. Training envs draw a randomized camera per episode
+(grasp_env.py:198-222).
 
 Three observation modes: depth (64, 64, 2), RGB-D (64, 64, 5), and the
-encoder latent (encoding_dim + 1,) when neither image mode is set
-(grasp_env.py:286-323): the depth image with the support, the tray walls
-and the gripper masked out by the render's seg ids goes through the
-trained encoder the caller passes in (training/train_encoder.py), the
-actuator observation and, with `time_feature`, the remaining-time fraction
-are appended.
+encoder latent when neither image mode is set (grasp_env.py:286-323): the
+depth image with the support, the tray walls and the gripper masked out by
+the render's seg ids goes through the trained encoder the caller passes in
+(training/train_encoder.py); the full task appends the actuator
+observation, and `time_feature` the remaining-time fraction. On the
+simplified task the depth observation's second channel is all zeros (the
+reference's padding channel, robot.py:193-199) and the latent is
+encoding_dim wide.
 
-Not ported yet: the simplified task's three-call step (:592-606), table
-clearing.
+Actions are decoded by envs/actuator.py: continuous, flat discrete, or,
+with `branched_actions` (set for BDQ), one bin per action dimension.
+
+Not ported yet: table clearing.
 """
 
 from __future__ import annotations
@@ -97,13 +104,14 @@ def env_state_from_numpy(arrays, device="cpu") -> EnvState:
 
 def observation_shape(config):
     """The observation shape of a (defaults-filled) config's env
-    (grasp_env.py:187-194): (H, W, 2) depth, (H, W, 5) RGB-D, else
-    (encoding_dim + 1,) latents, one more with `time_feature`."""
+    (grasp_env.py:187-194): (H, W, 2) depth, (H, W, 5) RGB-D, else latents,
+    (encoding_dim + 1,) on the full task and (encoding_dim,) on the
+    simplified one, one more with `time_feature`."""
     if config.get("depth_observation") or config.get("full_observation"):
         info = io_utils.load_yaml(cfg_util.resolve_path(config["sensor"]["camera_info"]))
         return (int(info["height"]), int(info["width"]),
                 5 if config.get("full_observation") else 2)
-    d = int(config.get("encoding_dim", 100)) + 1
+    d = int(config.get("encoding_dim", 100)) + (0 if config.get("simplified") else 1)
     return (d + 1,) if config.get("time_feature") else (d,)
 
 
@@ -122,9 +130,10 @@ class GraspEnv:
         self.simplified = bool(config["simplified"])
         self.depth_obs = bool(config.get("depth_observation", False))
         self.full_obs = bool(config.get("full_observation", False))
-        if self.simplified:
-            raise NotImplementedError("the simplified task is not ported yet "
-                                      "(ROADMAP Queue 1 item 5)")
+        if self.simplified and self.full_obs:
+            # the JAX package's simplified observation has 2 channels where
+            # its obs_shape says 5 (grasp_env.py:187-189, :273-276)
+            raise ValueError("the simplified task has no RGB-D observation")
         self.image_obs = self.depth_obs or self.full_obs
         self.encoding_dim = int(config.get("encoding_dim", 100))
         if not self.image_obs and getattr(encoder, "encoding_dim", None) != self.encoding_dim:
@@ -142,7 +151,7 @@ class GraspEnv:
         self.curriculum_spec = curr.CurriculumSpec.from_config(config)
 
         scene_cfg = config["scene"]
-        self.scene_type = scene_cfg.get("scene_type", "OnTable")
+        self.scene_type = scene_cfg.get("scene_type", "OnFloor" if self.simplified else "OnTable")
         self.max_slots = int(tpu["max_objects"])
         lib = objlib.get_library(int(tpu["spheres_per_object"]),
                                  oo_spheres=int(tpu.get("oo_spheres", 4)))
@@ -179,8 +188,21 @@ class GraspEnv:
         # evaluation uses the nominal camera (sensor.py:22)
         self.randomize = sensor_cfg.get("randomize") if not evaluate else None
         self.rgb_scale = float(sensor_cfg.get("rgb_scale", 255.0))
+        self.move_substeps = int(tpu.get("move_substeps", 24))
         self.gripper_substeps = int(tpu.get("gripper_substeps", 48))
         self.obs_shape = observation_shape(config)
+        # BDQ's composite actions, one bin per action dimension (set with
+        # the BDQ block's pad count by training/trainer.py
+        # `set_action_interface`)
+        self.branched_actions = False
+
+    @property
+    def discrete(self):
+        return self.actuator_spec.discrete
+
+    @property
+    def num_actions(self):
+        return self.actuator_spec.num_discrete_actions
 
     @property
     def action_dim(self):
@@ -257,19 +279,23 @@ class GraspEnv:
     def assemble_obs(self, state: EnvState, depth, rgb=None, seg=None):
         """Image observation (robot.py:183-205): depth, then a channel of
         zeros with the actuator width at pixel [0, 0]; RGB-D observations
-        put rgb * rgb_scale first. (B, H, W, 2) or (B, H, W, 5). Latent
-        observation (needs `seg`): the encoded masked depth, the actuator
-        observation and, with `time_feature`, the remaining time;
-        (B, encoding_dim + 1 [+ 1])."""
+        put rgb * rgb_scale first; the simplified task's second channel is
+        all zeros. (B, H, W, 2) or (B, H, W, 5). Latent observation (needs
+        `seg`): the encoded masked depth, on the full task the actuator
+        observation, and with `time_feature` the remaining time;
+        (B, encoding_dim [+ 1] [+ 1])."""
         width = physics.gripper_width(state.sim.gripper.q)
         a_obs = act.actuator_obs(self.actuator_spec, width, state.sim.gripper.q[:, 2])
         if not self.image_obs:
-            enc = self.encoder(self.encoder_input(depth, seg)[..., None])
-            obs = torch.cat([enc, a_obs], -1)
+            obs = self.encoder(self.encoder_input(depth, seg)[..., None])
+            if not self.simplified:
+                obs = torch.cat([obs, a_obs], -1)
             if self.time_feature:
                 obs = wrappers.append_time_feature(obs, state.episode_step, self.time_horizon)
             return obs
         pad = torch.zeros_like(depth)
+        if self.simplified:
+            return torch.stack([depth, pad], -1)
         pad[:, 0, 0] = a_obs[:, 0]
         if self.full_obs:
             return torch.cat([rgb * self.rgb_scale, depth[..., None], pad[..., None]], -1)
@@ -290,7 +316,11 @@ class GraspEnv:
     def _apply_action(self, sim: SimState, action):
         """Decode actions and set servo targets; returns (sim, cmd)."""
         g = sim.gripper
-        translation, yaw_rot, cmd = act.decode_action(self.actuator_spec, action, g.gripper_close)
+        if self.branched_actions:
+            translation, yaw_rot, cmd = act.decode_branched_action(self.actuator_spec, action)
+        else:
+            translation, yaw_rot, cmd = act.decode_action(self.actuator_spec, action,
+                                                          g.gripper_close)
         move_target, move_ee = self._compose_move_target(g, translation, yaw_rot)
         is_move = cmd == act.CMD_MOVE
         target = torch.where(is_move[:, None], move_target, g.target)
@@ -310,6 +340,35 @@ class GraspEnv:
         """Finger-stall grasp detection (robot.py:288-297)."""
         width = physics.gripper_width(sim.gripper.q)
         return (sim.gripper.finger_target == FINGER_CLOSED) & (width > tol)
+
+    def _simplified_trigger(self, sim: SimState):
+        """The grasp attempt's trigger (grasp_env.py:398-407): the fingers
+        close where the gripper is below 7 cm. Returns (sim, trigger, the
+        gripper height before the attempt)."""
+        g = sim.gripper
+        h = g.q[:, 2]
+        trigger = h < 0.07
+        g = g.replace(
+            finger_target=torch.where(trigger, torch.full_like(g.finger_target, FINGER_CLOSED),
+                                      g.finger_target),
+            gripper_close=g.gripper_close | trigger)
+        return sim.replace(gripper=g), trigger, h
+
+    def _simplified_lift(self, sim: SimState, trigger):
+        """Raise the triggered envs' z target by 5 cm (grasp_env.py:409-413)."""
+        g = sim.gripper
+        target = g.target.clone()
+        target[:, 2] += torch.where(trigger, 0.05, 0.0)
+        return sim.replace(gripper=g.replace(target=target))
+
+    def _simplified_outcome_core(self, state: EnvState, sim: SimState, trigger, h):
+        """The attempt's verdict where it was triggered, the descent's
+        elsewhere (grasp_env.py:415-423)."""
+        r_attempt, s_attempt = rew.simplified_outcome(self.object_detected(sim))
+        r_move, s_move, rs_move = rew.simplified_descend(self.reward_spec, state.reward_state, h)
+        reward = torch.where(trigger, r_attempt, r_move)
+        status = torch.where(trigger, s_attempt, s_move)
+        return state.replace(sim=sim, reward_state=rs_move), reward, status
 
     def _full_outcome_core(self, state: EnvState, sim: SimState):
         h = sim.gripper.q[:, 2]
@@ -373,6 +432,22 @@ class BatchedGraspEnv:
         depth, seg = out
         return env.assemble_obs(states, depth, seg=seg)
 
+    def step_core(self, states: EnvState, actions):
+        """The control step before the time limit and the auto-reset:
+        decode, the solver call(s), reward and status (grasp_env.py:592-613).
+        Returns (stepped states, reward, status)."""
+        env, params = self.env, self.env.sim_params
+        sim, _cmd = env._apply_action(states.sim, actions)
+        if env.simplified:
+            sim = solver_cuda.run_batched_sim(sim, params, env.move_substeps)
+            sim, trigger, h = env._simplified_trigger(sim)
+            sim = solver_cuda.run_batched_sim(sim, params, env.gripper_substeps)
+            sim = env._simplified_lift(sim, trigger)
+            sim = solver_cuda.run_batched_sim(sim, params, 2 * env.move_substeps)
+            return env._simplified_outcome_core(states, sim, trigger, h)
+        sim = solver_cuda.run_batched_sim(sim, params, env.gripper_substeps)
+        return env._full_outcome_core(states, sim)
+
     def step(self, states: EnvState, actions, curriculum: curr.CurriculumState):
         """One control step for every env at the curriculum's lambda.
         Returns (states, obs, rewards, dones, infos, curriculum) with VecEnv
@@ -380,9 +455,7 @@ class BatchedGraspEnv:
         episode) and the curriculum window updated with the finished
         episodes (single device: no all-gather)."""
         env = self.env
-        sim, _cmd = env._apply_action(states.sim, actions)
-        sim = solver_cuda.run_batched_sim(sim, env.sim_params, env.gripper_substeps)
-        stepped, reward, status = env._full_outcome_core(states, sim)
+        stepped, reward, status = self.step_core(states, actions)
         next_states, rewards, dones, infos = env._finalize_step(
             self.gen, states, stepped, reward, status, float(curriculum.lam))
         curriculum = curr.update(env.curriculum_spec, curriculum, dones,

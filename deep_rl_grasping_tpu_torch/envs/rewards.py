@@ -1,6 +1,9 @@
-"""Shaped reward for the full task (port of the parts of
-deep_rl_grasping_tpu/envs/rewards.py that the full continuous task uses:
-`shaped_reward`, rewards.py:25-52 / 99-143 without table clearing).
+"""Rewards, batched over the env axis (port of
+deep_rl_grasping_tpu/envs/rewards.py without table clearing):
+`shaped_reward` for the full task (rewards.py:25-52 / 99-143), and the
+simplified task's `simplified_descend` and `simplified_outcome`
+(rewards.py:153-168; its close-and-lift grasp attempt is physics, run by
+the env step).
 
 Status codes follow RobotEnv.Status (robot.py:40-44).
 """
@@ -82,3 +85,21 @@ def shaped_reward(spec: RewardSpec, rs: RewardState, robot_height, detected, lif
     status = torch.where(lifted, SUCCESS, RUNNING).to(torch.int32)
     new_rs = RewardState(lifting=detected, start_height=start_h, old_height=robot_height)
     return reward, status, new_rs
+
+
+def simplified_descend(spec: RewardSpec, rs: RewardState, robot_height):
+    """The simplified task's movement phase (rewards.py:153-160): FAIL when
+    the descent stalls (under 2 mm of progress, with `stalled`), else
+    RUNNING; reward 0. Returns (reward, status, new RewardState)."""
+    stalled = (rs.old_height - robot_height < 0.002) & spec.stalled
+    status = torch.where(stalled, FAIL, RUNNING).to(torch.int32)
+    return torch.zeros_like(robot_height), status, rs.replace(old_height=robot_height)
+
+
+def simplified_outcome(detected_after_lift):
+    """The grasp attempt's verdict (rewards.py:163-168): after the close and
+    the lift, SUCCESS with reward 1 iff the object is still held, else FAIL
+    with 0. Returns (reward, status)."""
+    reward = detected_after_lift.to(torch.float32)
+    status = torch.where(detected_after_lift, SUCCESS, FAIL).to(torch.int32)
+    return reward, status

@@ -1,13 +1,16 @@
-"""The scripted grasp expert of the full 5-d continuous task (port of
+"""Scripted grasp experts, batched over the env axis (port of
 deep_rl_grasping_tpu/envs/scripted.py: `_yaw_align` :26,
-`scripted_full_action` :78), batched over the env axis.
+`scripted_full_action` :78, `scripted_branched_action` :155,
+`scripted_discrete_action` :168, `scripted_simplified_action` :190).
 
-Servo over the nearest alive object, descend when centred, close at grasp
-height once the pinch axis is aligned with the object's minor axis, lift
-while holding. The trainer seeds the replay with its transitions
+Full task: servo over the nearest alive object, descend when centred,
+close at grasp height once the pinch axis is aligned with the object's
+minor axis, lift while holding. Simplified task (the descent, close and
+lift are automatic): steer over the nearest object and align the pinch
+axis. The branched and flat discrete experts quantize those actions for
+BDQ and DQN. The trainer seeds the replay with their transitions
 (`Trainer.seed_demos`). The move noise, the random action and the choice
-to take it are drawn from an explicit `torch.Generator`. The discrete,
-branched and simplified experts are not ported yet.
+to take it are drawn from an explicit `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -106,3 +109,70 @@ def scripted_full_action(env, state, gen: torch.Generator, noise=0.1, p_random=0
     rand_a = torch.rand((B, 5), generator=gen, device=dev) * 2.0 - 1.0
     use_rand = (torch.rand((B,), generator=gen, device=dev) < p_random) & ~engaged
     return torch.where(use_rand[:, None], rand_a, a)
+
+
+def _nearest_in_hand_frame(state):
+    """Slot of the nearest alive object (B,) and its xy offset in the
+    gripper's flipped hand frame (local y flips, robot.py:251-262)."""
+    g, obj = state.sim.gripper, state.sim.objects
+    d2 = ((obj.pos[..., :2] - g.q[:, None, :2]) ** 2).sum(-1)
+    d2 = torch.where(obj.alive, d2, torch.full_like(d2, float("inf")))
+    k = torch.argmin(d2, -1)
+    bi = torch.arange(k.shape[0], device=k.device)
+    wx, wy = obj.pos[bi, k, 0] - g.q[:, 0], obj.pos[bi, k, 1] - g.q[:, 1]
+    cy, sy = torch.cos(g.q[:, 3]), torch.sin(g.q[:, 3])
+    return k, cy * wx + sy * wy, -(-sy * wx + cy * wy)
+
+
+def scripted_simplified_action(env, state, gen: torch.Generator, noise=0.15, p_random=0.1):
+    """Expert actions (B, 3) = (dx, dy, dyaw) for the simplified task: steer
+    over the nearest object and align the pinch axis while the env descends
+    (scripted.py:190-218); Gaussian `noise` on every action, and with
+    probability `p_random` a uniform action instead."""
+    mt = env.actuator_spec.max_translation
+    k, ldx, ldy = _nearest_in_hand_frame(state)
+    a = torch.stack([torch.clamp(ldx / mt, -1.0, 1.0), torch.clamp(ldy / mt, -1.0, 1.0),
+                     _yaw_align(env, state, k)[0]], -1)
+    B, dev = a.shape[0], a.device
+    a = torch.clamp(a + noise * torch.randn((B, 3), generator=gen, device=dev), -1.0, 1.0)
+    rand_a = torch.rand((B, 3), generator=gen, device=dev) * 2.0 - 1.0
+    use_rand = torch.rand((B,), generator=gen, device=dev) < p_random
+    return torch.where(use_rand[:, None], rand_a, a)
+
+
+def _expert(env, state, gen, noise, p_random):
+    if env.simplified:
+        return scripted_simplified_action(env, state, gen, noise, p_random)
+    return scripted_full_action(env, state, gen, noise, p_random)
+
+
+def scripted_branched_action(env, state, gen: torch.Generator, noise=0.1, p_random=0.1):
+    """Expert bins for BDQ (B, 3 or 5) int32: the continuous expert
+    quantized per branch into `num_actions_pad` bins, the discretization
+    that actuator.decode_branched_action inverts (scripted.py:155-165)."""
+    pads = env.actuator_spec.num_actions_pad
+    a = _expert(env, state, gen, noise, p_random)
+    bins = torch.round((a + 1.0) / 2.0 * (pads - 1)).to(torch.int32)
+    return torch.clamp(bins, 0, pads - 1)
+
+
+def scripted_discrete_action(env, state, gen: torch.Generator, noise=0.1, p_random=0.1):
+    """Expert actions (B,) int32 for the flat discrete spaces
+    (scripted.py:168-187). Simplified Discrete(3 * pads): the dominant
+    branch moves one quantized step. Full Discrete(11): the dominant move
+    axis's row of the lookup table, or open (9) / close (10) when the
+    expert's open/close exceeds 0.5 in magnitude."""
+    pads = env.actuator_spec.num_actions_pad
+    a = _expert(env, state, gen, noise, p_random)
+    if env.simplified:
+        branch = torch.argmax(torch.abs(a), -1)
+        top = a.gather(-1, branch[:, None])[:, 0]
+        idx = torch.clamp(torch.round((top + 1.0) / 2.0 * (pads - 1)).to(torch.int64), 0,
+                          pads - 1)
+        return (branch * pads + idx).to(torch.int32)
+    axis = torch.argmax(torch.abs(a[:, :4]), -1)
+    # rows: +x=1, -x=2, +y=3, -y=4, +z=5, -z=6, +yaw=7, -yaw=8
+    neg = (a.gather(-1, axis[:, None])[:, 0] < 0).to(torch.int64)
+    move_row = 1 + 2 * axis + neg
+    toggle_row = torch.where(a[:, 4] > 0, 9, 10)
+    return torch.where(torch.abs(a[:, 4]) > 0.5, toggle_row, move_row).to(torch.int32)

@@ -1,6 +1,7 @@
-"""Policy and value networks as torch `nn.Module`s (port of the SAC parts
-of deep_rl_grasping_tpu/models/networks.py: `SACActor`, the twin-Q
-`SACCritic` :112-126 and `make_torso` :81).
+"""Policy and value networks as torch `nn.Module`s (port of
+deep_rl_grasping_tpu/models/networks.py: `SACActor`, the twin-Q
+`SACCritic` :112-126, `make_torso` :81, the DQN `QNetwork` :129-146 and
+the branch dueling `BDQNetwork` :149-181).
 
 Convolutions and the trunk's dense layers compute in bfloat16 with float32
 parameters, as the JAX package does (networks.py:30-31); the heads stay
@@ -129,3 +130,67 @@ class SACCritic(nn.Module):
     def forward(self, obs, action):
         x = torch.cat([self.torso(obs), action.to(torch.float32)], -1)
         return torch.cat([head(mlp(x)) for mlp, head in zip(self.mlps, self.heads)], -1)
+
+
+class QNetwork(nn.Module):
+    """DQN head on the MLP (or the CNN + MLP) torso: an advantage head
+    Dense(64) -> relu -> Dense(num_actions) and, when dueling, a value head
+    of the same shape with one output; Q = V + A - mean(A). Returns
+    (B, num_actions). The heads compute in float32."""
+
+    def __init__(self, obs_shape, num_actions, layers=(64, 64), image_obs=False, dueling=True):
+        super().__init__()
+        self.obs_shape = tuple(obs_shape)
+        self.image_obs = image_obs
+        self.dueling = dueling
+        self.torso, n_feat = make_torso(self.obs_shape, layers, image_obs)
+        self.mlp = MLP(n_feat, layers) if image_obs else None
+        self.adv_hidden = nn.Linear(layers[-1], 64)
+        self.adv = nn.Linear(64, num_actions)
+        if dueling:
+            self.val_hidden = nn.Linear(layers[-1], 64)
+            self.val = nn.Linear(64, 1)
+
+    def forward(self, obs):
+        h = self.torso(obs)
+        if self.mlp is not None:
+            h = self.mlp(h)
+        adv = self.adv(F.relu(self.adv_hidden(h)))
+        if not self.dueling:
+            return adv
+        val = self.val(F.relu(self.val_hidden(h)))
+        return val + adv - adv.mean(-1, keepdim=True)
+
+
+class BDQNetwork(nn.Module):
+    """Branch Dueling Q-Network: a shared trunk MLP (on the augmented CNN
+    for image observations), a state-value stream MLP -> Dense(1) and per
+    branch an advantage stream MLP -> Dense(num_actions_pad); per branch
+    Q_d = V + A_d - mean_a A_d. Returns (B, num_branches, num_actions_pad)."""
+
+    def __init__(self, obs_shape, num_branches, num_actions_pad, trunk_layers=(64, 64),
+                 branch_layers=(32,), value_layers=(32,), image_obs=False):
+        super().__init__()
+        self.obs_shape = tuple(obs_shape)
+        self.image_obs = image_obs
+        if image_obs:
+            self.cnn = AugmentedNatureCNN(self.obs_shape, num_direct_features=1)
+            n_in = self.cnn.out_features
+        else:
+            self.cnn = None
+            n_in = self.obs_shape[0]
+        self.trunk = MLP(n_in, trunk_layers)
+        self.value_mlp = MLP(trunk_layers[-1], value_layers)
+        self.value = nn.Linear(value_layers[-1], 1)
+        self.branch_mlps = nn.ModuleList(MLP(trunk_layers[-1], branch_layers)
+                                         for _ in range(num_branches))
+        self.branches = nn.ModuleList(nn.Linear(branch_layers[-1], num_actions_pad)
+                                      for _ in range(num_branches))
+
+    def forward(self, obs):
+        h = obs if self.cnn is None else self.cnn(obs)
+        trunk = self.trunk(h)
+        v = self.value(self.value_mlp(trunk))
+        adv = torch.stack([head(mlp(trunk)) for mlp, head in
+                           zip(self.branch_mlps, self.branches)], -2)
+        return v[..., None] + adv - adv.mean(-1, keepdim=True)

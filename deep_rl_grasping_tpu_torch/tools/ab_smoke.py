@@ -71,7 +71,8 @@ def summary(text):
                  same_scene_wall_s=d["wall_seconds"], same_scene_repeat_equal=d["repeat_equal"])
     for d in ph.get("train", []):
         s.update(train_ms_per_env_step=d["ms_per_env_step"],
-                 train_ms_per_sac_update=d["ms_per_sac_update"],
+                 # `ms_per_sac_update` in the logs of trees before the Q-learners
+                 train_ms_per_update=d.get("ms_per_update", d.get("ms_per_sac_update")),
                  train_iteration_frames_per_s=d["iteration_frames_per_s"],
                  train_end_to_end_frames_per_s=d["end_to_end_frames_per_s"],
                  train_wall_s=d["wall_seconds"])

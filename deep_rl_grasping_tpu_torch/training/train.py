@@ -2,21 +2,24 @@
 deep_rl_grasping_tpu/training/train.py).
 
     python -m deep_rl_grasping_tpu_torch.training.train train \
-        --config configs/sac_rgbd_flagship.yaml --algo SAC --model_dir <dir> \
-        [--timestep N] [--seed S] [--device cuda|cpu]
+        --config configs/sac_rgbd_flagship.yaml --algo SAC|DQN|BDQ \
+        --model_dir <dir> [--timestep N] [--seed S] [-s] [--device cuda|cpu]
     python -m deep_rl_grasping_tpu_torch.training.train run \
         --model <dir> [-b] | --npz trained/sac_full_flagship_r5c \
         [--episodes N] [-t] [--stochastic] [--device cuda|cpu]
 
-`train` is the single-device off-policy (SAC) branch of train.py:78-473:
-demo seeding and periodic refresh, the chunk loop, the monitor, scalar,
-curriculum and TensorBoard logs, `stop_at_sr`, the q-tripwire rollback,
-the eval cadence (protocol eval plus the eval at the training lambda),
-checkpoints and the best model, SIGTERM handling and the `done:` /
-`stopped:` marker. `run` evaluates a checkpoint this port wrote (`--model`,
-latest or `-b` best) or a committed SAC policy bundle (`--npz`) on the
-100-episode protocol (train.py:474). Depth, RGB-D and encoder-latent
-observations (the CNN or the MLP torso, as the config says) are all taken.
+`train` is the single-device off-policy branch of train.py:78-473 for
+SAC, DQN and BDQ (`robot.discrete` is set for the two Q-learners, `-s`
+selects the simplified task): demo seeding and periodic refresh, the chunk
+loop, the monitor, scalar, curriculum and TensorBoard logs, `stop_at_sr`,
+the q-tripwire rollback (SAC with `q_clip`), the eval cadence (protocol
+eval plus the eval at the training lambda), checkpoints and the best
+model, SIGTERM handling and the `done:` / `stopped:` marker. `run`
+evaluates a checkpoint this port wrote (`--model`, latest or `-b` best) or
+a committed SAC, DQN or BDQ policy bundle (`--npz`) on the 100-episode
+protocol (train.py:474). Depth, RGB-D and encoder-latent observations (the
+CNN or the MLP torso, as the config says), the full and the simplified
+task are all taken.
 
 Both run on the card unless `--device cpu` is given; with no card and no
 `--device cpu` they stop with an error instead of falling back.
@@ -37,12 +40,14 @@ import time
 
 import torch
 
+from deep_rl_grasping_tpu_torch.algos.bdq import BDQ
+from deep_rl_grasping_tpu_torch.algos.dqn import DQN
 from deep_rl_grasping_tpu_torch.algos.normalize import NormalizerState, RunningMeanStd
 from deep_rl_grasping_tpu_torch.envs.actuator import ActuatorSpec
 from deep_rl_grasping_tpu_torch.envs.grasp_env import observation_shape
 from deep_rl_grasping_tpu_torch.models.networks import SACActor
 from deep_rl_grasping_tpu_torch.training import callbacks as cb
-from deep_rl_grasping_tpu_torch.training.trainer import Evaluator, Trainer
+from deep_rl_grasping_tpu_torch.training.trainer import ALGOS, Evaluator, Trainer
 from deep_rl_grasping_tpu_torch.utils import config as cfg_util
 from deep_rl_grasping_tpu_torch.utils import io_utils, policy_io
 from deep_rl_grasping_tpu_torch.utils.tb_events import TensorBoardWriter
@@ -103,8 +108,8 @@ def train(args):
     set_precision()
     config = cfg_util.load_config(args.config)
     algo = args.algo.upper()
-    if algo != "SAC":
-        raise SystemExit("the port trains SAC only")
+    if algo not in ALGOS:
+        raise SystemExit(f"the port trains {', '.join(ALGOS)}, not {algo}")
     model_dir = args.model_dir
     os.makedirs(os.path.join(model_dir, "best_model"), exist_ok=True)
 
@@ -117,7 +122,7 @@ def train(args):
         config.setdefault(algo, {})["total_timesteps"] = int(args.timestep)
     if args.timefeature:
         config["time_feature"] = True
-    config["robot"]["discrete"] = False
+    config["robot"]["discrete"] = algo in ("DQN", "BDQ")
     config["algorithm"] = algo.lower()
     io_utils.save_yaml(config, os.path.join(model_dir, "config.yaml"))
     io_utils.save_yaml(config, os.path.join(model_dir, "best_model", "config.yaml"))
@@ -154,7 +159,7 @@ def train(args):
     # rolls the learner back to the last checkpoint.
     q_band = None
     qc = config.get("SAC", {}).get("q_clip")
-    if qc:
+    if qc and algo == "SAC":
         margin = 0.02 * (float(qc[1]) - float(qc[0]))
         q_band = [float(qc[0]) + margin, float(qc[1]) - margin]
     last_rollback = -10 ** 9
@@ -208,7 +213,7 @@ def train(args):
                     solved = True
                     break
 
-            qm = row["q_target_mean"]
+            qm = row.get("q_target_mean", math.nan)
             if (q_band and math.isfinite(qm) and last_ckpt > 0
                     and frames - last_rollback > checkpoint_freq
                     and not q_band[0] <= qm <= q_band[1]):
@@ -230,7 +235,7 @@ def train(args):
                 ckpt.save(frames, _bundle(trainer, state))
                 last_ckpt = frames
             if frames - last_eval >= eval_freq:
-                actor, norm = trainer.algo.actor, state.normalizer
+                actor, norm = trainer.policy, state.normalizer
                 res = trainer.evaluate(actor, norm)
                 log.info("eval @ %d: %s", frames, res)
                 # second eval at the training lambda while the curriculum ramps
@@ -262,51 +267,63 @@ def train(args):
         log.info("stopped: %d frames (target %d)", frames, total_timesteps)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    cur = state.curriculum
+    cur, buf = state.curriculum, state.buffer
     return dict(frames=frames, done=done, wall_seconds=time.perf_counter() - t_start,
                 curriculum_lambda=float(cur.lam), success_rate=float(cur.sr_mean),
                 episodes=int(state.ep_ring_n), metrics=row, eval=res,
                 updates=trainer.algo.step, phase_seconds=trainer.clock.totals(),
-                checkpoint_step=ckpt.latest_step())
+                checkpoint_step=ckpt.latest_step(), replay_rows=buf.size,
+                rows_off_priority_1=int((buf.priority[:buf.size] != 1.0).sum())
+                if trainer.prioritized else None)
 
 
-def _actor_for(config):
-    """The SAC actor a config trains: the CNN torso on image observations,
-    the MLP torso on latents."""
+def _policy_for(config, device):
+    """An untrained policy of the kind a config trains: the SAC actor (the
+    CNN torso on image observations, the MLP torso on latents), or the DQN
+    / BDQ learner, on `device`."""
+    algo = config.get("algorithm", "sac").upper()
     obs_shape = observation_shape(config)
-    layers = tuple(config.get("SAC", {}).get("layers", [64, 64]))
-    action_dim = ActuatorSpec.from_config(config).action_dim
-    return SACActor(obs_shape, action_dim, layers, image_obs=len(obs_shape) == 3)
+    spec = ActuatorSpec.from_config(config)
+    if algo == "SAC":
+        layers = tuple(config.get("SAC", {}).get("layers", [64, 64]))
+        return SACActor(obs_shape, spec.action_dim, layers,
+                        image_obs=len(obs_shape) == 3).to(device)
+    if algo == "DQN":
+        return DQN(obs_shape, spec.num_discrete_actions, config, device)
+    if algo == "BDQ":
+        return BDQ(obs_shape, 3 if spec.simplified else 5, config, device)
+    raise SystemExit(f"the port evaluates {', '.join(ALGOS)} policies, not {algo}")
 
 
 def load_bundle_actor(model_dir, device):
-    """Build the SAC actor for a committed bundle's config and load its
-    weights. Returns (config, actor, normalizer)."""
+    """Build the policy for a committed bundle's config (a SAC actor, or a
+    DQN / BDQ learner) and load its weights. Returns (config, policy,
+    normalizer)."""
     config = cfg_util.load_config(os.path.join(model_dir, "config.yaml"))
-    algo = config.get("algorithm", "sac").upper()
-    if algo != "SAC":
-        raise SystemExit(f"the port evaluates SAC bundles only (bundle algo: {algo})")
-    actor = _actor_for(config)
-    actor, normalizer, _meta = policy_io.load_policy(model_dir, actor, device)
-    actor.eval()
-    return config, actor, normalizer
+    policy = _policy_for(config, device)
+    net = policy if isinstance(policy, SACActor) else policy.net
+    net, normalizer, _meta = policy_io.load_policy(model_dir, net, device)
+    net.eval()
+    return config, policy, normalizer
 
 
 def load_checkpoint_actor(model_dir, device, best=False):
-    """The actor and normalizer of a checkpoint written by `train` (latest,
-    or the best evaluation). Returns (config, actor, normalizer)."""
+    """The policy (SAC actor, or DQN / BDQ learner) and normalizer of a
+    checkpoint written by `train` (latest, or the best evaluation). Returns
+    (config, policy, normalizer)."""
     config = cfg_util.load_config(os.path.join(model_dir, "config.yaml"))
-    if config.get("algorithm", "sac").upper() != "SAC":
-        raise SystemExit("the port evaluates SAC checkpoints only")
     ckpt = cb.Checkpointer(model_dir)
     bundle = ckpt.restore_best(device) if best else ckpt.restore(device=device)
-    actor = _actor_for(config).to(device)
-    actor.load_state_dict(bundle["algo_state"]["actor"])
-    actor.eval()
+    policy = _policy_for(config, device)
+    if isinstance(policy, SACActor):
+        policy.load_state_dict(bundle["algo_state"]["actor"])
+        policy.eval()
+    else:
+        policy.load_state_dict(bundle["algo_state"])
     rms = lambda d: RunningMeanStd(mean=d["mean"], var=d["var"], count=d["count"])
     normalizer = NormalizerState(obs_rms=rms(bundle["obs_rms"]), ret_rms=rms(bundle["ret_rms"]),
                                  returns=torch.zeros(0, device=device))
-    return config, actor, normalizer
+    return config, policy, normalizer
 
 
 def run(args):
@@ -337,7 +354,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser()
     sub = parser.add_subparsers(required=True)
 
-    tp = sub.add_parser("train", help="train SAC from a config")
+    tp = sub.add_parser("train", help="train SAC, DQN or BDQ from a config")
     tp.add_argument("--config", type=str, required=True)
     tp.add_argument("--algo", type=str, required=True)
     tp.add_argument("--model_dir", type=str, required=True)

@@ -1,17 +1,23 @@
 """Training loop and evaluation harness (port of
 deep_rl_grasping_tpu/training/trainer.py: `EvalMixin.evaluate` :132,
 `Trainer` :225, `init_state` :333, `seed_demos` :375, `train_step` :484,
-`train_chunk` :638), single device, off-policy SAC.
+`train_chunk` :638, `make_algo` :90), single device, off-policy: SAC, DQN
+and BDQ.
 
 One training iteration steps `num_envs` envs once with the current policy,
-stores the frames, and runs `updates_per_step` SAC updates on batches drawn
-from the replay (with a protected demonstration ring for the batch tail
-when `tpu.demo_fraction` > 0). PyTorch runs it eagerly: the env step goes
-through the CUDA kernels on the card, the update through cuDNN/cuBLAS and
-autograd. Differences from the JAX package, outcome unchanged:
+stores the frames, and runs `updates_per_step` updates on batches drawn
+from the replay: uniform (with a protected demonstration ring for the batch
+tail when `tpu.demo_fraction` > 0), or prioritized when the DQN or BDQ
+block sets `prioritized_replay`, each update then writing its |TD| back as
+the drawn rows' priorities (trainer.py:513-517, :562-568). DQN and BDQ act
+epsilon-greedily with epsilon annealed over env frames, not updates
+(trainer.py:443-455); evaluation is greedy. PyTorch runs it eagerly: the
+env step goes through the CUDA kernels on the card, the update through
+cuDNN/cuBLAS and autograd. Differences from the JAX package, outcome
+unchanged:
 
-* The learner (`SAC`, its modules and optimizers) lives in the trainer,
-  not in the loop state.
+* The learner (`SAC`, `DQN` or `BDQ`, its modules and optimizers) lives in
+  the trainer, not in the loop state.
 * While the replay is below `learning_starts` the update is skipped, where
   the JAX package computes it and throws it away; the metrics of such an
   iteration are NaN.
@@ -24,11 +30,12 @@ weights are missing (grasp_env.py:298-311), the port refuses.
 
 Evaluation scenes use a generator seeded with 1 (the JAX package uses
 PRNGKey(1); torch cannot reproduce that stream, so the scenes differ but the
-protocol is the same). The prioritized replay branch is not ported yet.
+protocol is the same).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 import time
@@ -39,6 +46,8 @@ import torch
 from deep_rl_grasping_tpu_torch.algos import normalize as norm_mod
 from deep_rl_grasping_tpu_torch.algos import replay as replay_mod
 from deep_rl_grasping_tpu_torch.algos import sac
+from deep_rl_grasping_tpu_torch.algos.bdq import BDQ
+from deep_rl_grasping_tpu_torch.algos.dqn import DQN, QLearner
 from deep_rl_grasping_tpu_torch.envs import curriculum as curr_mod
 from deep_rl_grasping_tpu_torch.envs import scripted
 from deep_rl_grasping_tpu_torch.envs.grasp_env import BatchedGraspEnv, EnvState, GraspEnv
@@ -53,8 +62,7 @@ MONITOR_RING = 4096
 # Floor of the lambda cap on the target-entropy anneal (the JAX package's
 # tpu.entropy_anneal_floor default; no config sets it).
 ENTROPY_ANNEAL_FLOOR = 0.5
-METRIC_KEYS = ("critic_loss", "actor_loss", "bc_loss", "bc_gate", "alpha_loss", "alpha",
-               "entropy", "td_abs", "q_target_mean", "reward_mean", "reward_max", "done_frac")
+ALGOS = ("SAC", "DQN", "BDQ")
 
 
 def refuse_unported(tpu_cfg):
@@ -72,6 +80,46 @@ def refuse_unported(tpu_cfg):
             f"tpu.update_batch_scale: {scale} folds that many updates into one larger batch "
             "(deep_rl_grasping_tpu/training/trainer.py:237-259), which the port does not do "
             "yet (ROADMAP Queue 1 item 9); set it to 1")
+
+
+def set_action_interface(env: GraspEnv, algo_name, config):
+    """BDQ acts with one bin per action dimension: the env decodes branched
+    actions with the BDQ block's pad count, not robot.num_actions_pad
+    (trainer.py:97-109). Training and evaluation envs alike: an eval env
+    left at the robot's pads puts every bin in the wrong place (the JAX
+    package measured train sr 0.89, eval 0.0 that way, trainer.py:153-157)."""
+    if algo_name == "BDQ":
+        env.branched_actions = True
+        pads = int(config.get("BDQ", {}).get("num_actions_pad", 33))
+        env.actuator_spec = dataclasses.replace(env.actuator_spec, num_actions_pad=pads)
+    return env
+
+
+def make_algo(config, env: GraspEnv, algo_name, device):
+    """The learner for `algo_name` on `env`'s observations and actions
+    (trainer.py:90-113); sets BDQ's action interface on `env`."""
+    algo_name = algo_name.upper()
+    if algo_name == "SAC":
+        return sac.SAC(env.obs_shape, env.action_dim, config, device)
+    if algo_name == "DQN":
+        if not env.discrete:
+            raise ValueError("DQN needs a discrete action space (robot.discrete: true)")
+        return DQN(env.obs_shape, env.num_actions, config, device)
+    if algo_name == "BDQ":
+        set_action_interface(env, algo_name, config)
+        return BDQ(env.obs_shape, 3 if env.simplified else 5, config, device)
+    raise NotImplementedError(f"the port trains {', '.join(ALGOS)}; not {algo_name} "
+                              "(ROADMAP Queue 1 item 8)")
+
+
+def act(policy, obs, gen, deterministic=False, frames=None):
+    """Actions of a SAC actor (tanh of the mean, or a sample) or of a DQN /
+    BDQ learner (greedy, or epsilon-greedy at `frames` env frames; the
+    learner's update count when not given, as trainer.py:451 does)."""
+    if isinstance(policy, QLearner):
+        eps = 0.0 if deterministic else policy.epsilon(policy.step if frames is None else frames)
+        return policy.act(obs, gen, eps)
+    return sac.act(policy, obs, gen, deterministic=deterministic)
 
 
 def _maybe_load_encoder(config, device):
@@ -93,8 +141,8 @@ def _maybe_load_encoder(config, device):
 
 
 class EvalMixin:
-    """Needs `self.config`, `self.normalize`, `self.device` and
-    `self.encoder`."""
+    """Needs `self.config`, `self.algo_name`, `self.normalize`, `self.device`
+    and `self.encoder`."""
 
     def evaluate(self, actor, normalizer, n_episodes=10, validate=True, stochastic=False,
                  lam=None, initial_states=None):
@@ -104,9 +152,11 @@ class EvalMixin:
         diagnostic on the distribution the policy trains on).
         `initial_states` (an `EnvState` of `n_episodes` envs on the device)
         starts the protocol from given scenes instead of drawing them, for
-        example the JAX package's own evaluation scenes."""
+        example the JAX package's own evaluation scenes. `actor` is a SAC
+        actor or a DQN / BDQ learner (see `act`)."""
         eval_env = GraspEnv(self.config, evaluate=True, validate=validate, device=self.device,
                             encoder=self.encoder)
+        set_action_interface(eval_env, self.algo_name, self.config)
         scene_gen = torch.Generator(device=self.device)
         scene_gen.manual_seed(SCENE_SEED)
         act_gen = torch.Generator(device=self.device)
@@ -132,7 +182,7 @@ class EvalMixin:
         t = 0
         while t < eval_env.time_horizon and not bool(done_once.all()):
             obs_in = norm_mod.normalize_obs(normalizer, obs) if self.normalize else obs
-            actions = sac.act(actor, obs_in, act_gen, deterministic=not stochastic)
+            actions = act(actor, obs_in, act_gen, deterministic=not stochastic)
             states, obs, rewards, dones, infos, cur = benv.step(states, actions, cur)
             first_done = dones & ~done_once
             ret = torch.where(first_done, infos["episode_return"], ret)
@@ -154,6 +204,7 @@ class EvalMixin:
 class Evaluator(EvalMixin):
     def __init__(self, config, device="cuda"):
         self.config = cfg_util.load_config(config)
+        self.algo_name = str(self.config.get("algorithm", "sac")).upper()
         self.normalize = bool(self.config.get("normalize", False))
         self.device = torch.device(device)
         self.encoder = _maybe_load_encoder(self.config, self.device)
@@ -212,8 +263,6 @@ class Trainer(EvalMixin):
     def __init__(self, config, algo="SAC", device="cuda", seed=0):
         self.config = cfg_util.load_config(config)
         self.algo_name = algo.upper()
-        if self.algo_name != "SAC":
-            raise NotImplementedError("the port trains SAC only")
         self.device = torch.device(device)
         tpu_cfg = self.config["tpu"]
         refuse_unported(tpu_cfg)
@@ -224,11 +273,12 @@ class Trainer(EvalMixin):
         self.env_gen, self.learn_gen, self.demo_gen = gen(0), gen(1), gen(2)
         self.benv = BatchedGraspEnv(self.env, self.num_envs, self.env_gen)
         self.updates_per_step = int(tpu_cfg.get("updates_per_step", 1))
-        self.algo = sac.SAC(self.env.obs_shape, self.env.action_dim, self.config, self.device)
+        self.algo = make_algo(self.config, self.env, self.algo_name, self.device)
+        self.prioritized = bool(getattr(self.algo, "prioritized", False))
         self.normalize = bool(self.config.get("normalize", False))
         # fixed learner-side reward scale; overrides reward normalization
         self.reward_scale = float(self.config.get("reward_scale", 0) or 0)
-        algo_cfg = self.config.get("SAC", {})
+        algo_cfg = self.config.get(self.algo_name, {})
         self.buffer_size = int(algo_cfg.get("buffer_size", 200_000))
         self.batch_size = int(algo_cfg.get("batch_size", 256))
         self.learning_starts = int(algo_cfg.get("learning_starts", 1000))
@@ -242,8 +292,19 @@ class Trainer(EvalMixin):
             raise ValueError("tpu.demo_fraction > 0 requires tpu.demo_frames > 0 "
                              "(the demo ring is filled by scripted-expert seeding)")
         self.demo_capacity = int(tpu_cfg.get("demo_capacity", tpu_cfg.get("demo_frames", 0)))
-        self.act_shape = (self.env.action_dim,)
+        # discrete actions are stored as integers (trainer.py:319-329)
+        if self.algo_name == "BDQ":
+            self.act_shape, self.act_dtype = (self.algo.num_branches,), torch.int32
+        elif self.env.discrete:
+            self.act_shape, self.act_dtype = (), torch.int32
+        else:
+            self.act_shape, self.act_dtype = (self.env.action_dim,), torch.float32
         self.clock = _Clock(self.device)
+
+    @property
+    def policy(self):
+        """What acts: the SAC actor, or the DQN / BDQ learner (see `act`)."""
+        return self.algo.actor if self.algo_name == "SAC" else self.algo
 
     # ------------------------------------------------------------------ init
 
@@ -252,7 +313,8 @@ class Trainer(EvalMixin):
         curriculum = self.benv.init_curriculum()
         env_states, obs = self.benv.reset(curriculum)
         make = lambda cap: replay_mod.create(cap, self.env.obs_shape, self.act_shape,
-                                             batch_stride=self.num_envs, device=dev)
+                                             batch_stride=self.num_envs,
+                                             action_dtype=self.act_dtype, device=dev)
         return LoopState(
             env_states=env_states, obs=obs, curriculum=curriculum,
             buffer=make(self.buffer_size),
@@ -269,12 +331,23 @@ class Trainer(EvalMixin):
         """Fill the replay (and the protected demo ring) with scripted-expert
         transitions at the current curriculum lambda. The normalizer folds
         them in; the curriculum window does not (demo successes must not
-        advance lambda). Returns (state, episodes ended, successes)."""
+        advance lambda). The expert fits the action space: branched bins for
+        BDQ, flat discrete actions for DQN, the simplified or the full
+        continuous expert for SAC (trainer.py:388-395). Returns (state,
+        episodes ended, successes)."""
+        if self.algo_name == "BDQ":
+            expert = scripted.scripted_branched_action
+        elif self.env.discrete:
+            expert = scripted.scripted_discrete_action
+        elif self.env.simplified:
+            expert = scripted.scripted_simplified_action
+        else:
+            expert = scripted.scripted_full_action
         env_states, obs, normalizer = state.env_states, state.obs, state.normalizer
         n_done = torch.zeros((), device=self.device)
         n_succ = torch.zeros((), device=self.device)
         for _ in range(max(n_frames // self.num_envs, 1)):
-            actions = scripted.scripted_full_action(self.env, env_states, self.demo_gen)
+            actions = expert(self.env, env_states, self.demo_gen)
             env_states, next_obs, rewards, dones, infos, _cur = self.benv.step(
                 env_states, actions, state.curriculum)
             normalizer = norm_mod.update_batch(normalizer, obs, rewards, dones,
@@ -296,7 +369,8 @@ class Trainer(EvalMixin):
         tpu.entropy_anneal_lambda (trainer.py:457); None when no anneal is
         configured."""
         a = self.algo
-        if a.target_entropy_final is None or a.target_entropy_anneal <= 0:
+        if (self.algo_name != "SAC" or a.target_entropy_final is None
+                or a.target_entropy_anneal <= 0):
             return None
         frac = min(max(frames / a.target_entropy_anneal, 0.0), 1.0)
         if self.entropy_anneal_lambda and lam is not None:
@@ -312,10 +386,14 @@ class Trainer(EvalMixin):
         return batch
 
     def _batch(self, state: LoopState, normalizer):
-        """One update batch: uniform (with recency stratification) from the
-        main ring, plus the demo tail when demo oversampling is on."""
+        """One update batch: prioritized from the main ring; or uniform
+        (with recency stratification) from it, plus the demo tail when demo
+        oversampling is on."""
         gen, gamma = self.learn_gen, self.algo.gamma
-        if self.demo_batch > 0:
+        if self.prioritized:
+            batch = replay_mod.sample_prioritized(state.buffer, gen, self.batch_size,
+                                                  n_step=self.n_step, gamma=gamma)
+        elif self.demo_batch > 0:
             n_main = self.batch_size - self.demo_batch
             main = replay_mod.sample(state.buffer, gen, n_main, self.n_step, gamma,
                                      recent_batch=int(round(n_main * self.recent_fraction)),
@@ -345,7 +423,7 @@ class Trainer(EvalMixin):
         t0 = clock.mark()
         obs_in = (norm_mod.normalize_obs(state.normalizer, state.obs) if self.normalize
                   else state.obs)
-        actions = sac.act(self.algo.actor, obs_in, self.learn_gen)
+        actions = act(self.policy, obs_in, self.learn_gen, frames=state.global_step)
         lam = float(state.curriculum.lam)
         target_entropy = self._target_entropy_at(state.global_step, lam)
         env_states, next_obs, rewards, dones, infos, curriculum = self.benv.step(
@@ -360,12 +438,17 @@ class Trainer(EvalMixin):
         if buffer.size >= max(self.learning_starts, self.batch_size + self.num_envs):
             for _ in range(self.updates_per_step):
                 batch = self._batch(state, normalizer)
-                metrics, _td = self.algo.update(batch, self.learn_gen,
-                                                target_entropy=target_entropy)
+                if self.algo_name == "SAC":
+                    metrics, td = self.algo.update(batch, self.learn_gen,
+                                                   target_entropy=target_entropy)
+                else:
+                    metrics, td = self.algo.update(batch, self.learn_gen)
+                if self.prioritized:
+                    replay_mod.update_priorities(buffer, batch["idx"], td)
             clock.add("update", t1, clock.mark())
         if metrics is None:
             nan = torch.tensor(math.nan, device=self.device)
-            metrics = {k: nan for k in METRIC_KEYS}
+            metrics = {k: nan for k in self.algo.METRIC_KEYS}
 
         # per-episode monitor ring: keep the last MONITOR_RING of this step's
         # finished episodes (spare slot R takes the dropped ones)

@@ -3,7 +3,8 @@
 Reads the committed `trained/*/policy.npz` bundles (written by the JAX
 package's utils/policy_io.py, arrays keyed by Flax key path such as
 `policy['MLP_0']['Dense_0']['kernel']`, policy_io.py:28-31,79) into a
-`SACActor` state_dict and a `NormalizerState`. Layout changes:
+`SACActor`, `QNetwork` or `BDQNetwork` state_dict and a
+`NormalizerState`. Layout changes:
 
 * Dense kernels are (in, out) in Flax and (out, in) in torch: transposed.
 * Conv kernels are HWIO in Flax and OIHW in torch: permuted.
@@ -11,10 +12,20 @@ package's utils/policy_io.py, arrays keyed by Flax key path such as
   NHWC flatten in Flax and an NCHW flatten in the port, so its input rows
   are reordered from (h, w, c) to (c, h, w).
 
-`actor_state_dict` and `critic_state_dict` take plain nested dicts of numpy
-arrays in the Flax layout too; `load_sac_state` carries a whole Flax
-`SACState` (actor, critic, target critic, log_alpha) into the port's SAC,
-which is how the tests hand it freshly initialised Flax params.
+Flax names a layer when the layer is built, not when it is applied
+(networks.py:129-181). In `QNetwork`, `Dense(A)(relu(Dense(64)(h)))`
+builds the outer layer first: `Dense_0` is the advantage output,
+`Dense_1` the 64-wide layer under it, `Dense_2` / `Dense_3` the same for
+the value. In `BDQNetwork`, `MLP_0` is the trunk, `MLP_1` + `Dense_0` the
+value stream and `MLP_{2+d}` + `Dense_{1+d}` branch d. The value and
+branch MLPs have the same shapes, so only the order tells them apart.
+
+`actor_state_dict`, `critic_state_dict` and `q_state_dict` take plain
+nested dicts of numpy arrays in the Flax layout too; `load_sac_state`
+carries a whole Flax `SACState` (actor, critic, target critic, log_alpha)
+into the port's SAC and `load_q_state` a `DQNState` / `BDQState` (params,
+target params) into the port's DQN / BDQ, which is how the tests hand them
+freshly initialised Flax params.
 """
 
 from __future__ import annotations
@@ -27,7 +38,12 @@ import numpy as np
 import torch
 
 from deep_rl_grasping_tpu_torch.algos.normalize import NormalizerState, RunningMeanStd
-from deep_rl_grasping_tpu_torch.models.networks import SACActor, SACCritic
+from deep_rl_grasping_tpu_torch.models.networks import (
+    BDQNetwork,
+    QNetwork,
+    SACActor,
+    SACCritic,
+)
 
 _KEY = re.compile(r"\['([^']+)'\]")
 
@@ -100,6 +116,49 @@ def critic_state_dict(params: dict, critic: SACCritic) -> dict:
     return _tensors(out)
 
 
+def q_state_dict(params: dict, net) -> dict:
+    """Flax QNetwork or BDQNetwork params (nested dict of arrays) -> torch
+    state_dict of the port's `QNetwork` or `BDQNetwork`, by the creation
+    order described above."""
+    out = {}
+    if isinstance(net, BDQNetwork):
+        if net.cnn is not None:
+            _torso(params, net.cnn, "cnn.", out)
+        _mlp(params["MLP_0"], "trunk.", out)
+        _mlp(params["MLP_1"], "value_mlp.", out)
+        _dense(params["Dense_0"], "value.", out)
+        for d in range(len(net.branches)):
+            _mlp(params[f"MLP_{2 + d}"], f"branch_mlps.{d}.", out)
+            _dense(params[f"Dense_{1 + d}"], f"branches.{d}.", out)
+        return _tensors(out)
+    if not isinstance(net, QNetwork):
+        raise TypeError(f"not a Q network: {type(net).__name__}")
+    i = _torso(params, net.torso, "torso.", out)
+    if net.mlp is not None:
+        _mlp(params[f"MLP_{i}"], "mlp.", out)
+    heads = ("adv", "adv_hidden") + (("val", "val_hidden") if net.dueling else ())
+    for j, name in enumerate(heads):
+        _dense(params[f"Dense_{j}"], f"{name}.", out)
+    return _tensors(out)
+
+
+def _n_arrays(tree) -> int:
+    return sum(_n_arrays(v) for v in tree.values()) if isinstance(tree, dict) else 1
+
+
+def _policy_state_dict(params: dict, module) -> dict:
+    """Flax policy params -> `module`'s state_dict; refuses params with an
+    array the module has no place for."""
+    if isinstance(module, SACActor):
+        sd = actor_state_dict(params, module)
+    else:
+        sd = q_state_dict(params, module)
+    if len(sd) != _n_arrays(params):
+        raise ValueError(f"the bundle holds {_n_arrays(params)} policy arrays, "
+                         f"{type(module).__name__} takes {len(sd)}")
+    return sd
+
+
 def _load_strict(module, sd):
     own = module.state_dict()
     for k, v in sd.items():
@@ -131,6 +190,18 @@ def load_sac_state(sac, actor_params, critic_params, target_critic_params, log_a
     return sac
 
 
+def load_q_state(learner, params, target_params):
+    """Carry a Flax `DQNState` / `BDQState` across: params and target params
+    (nested dicts of numpy arrays) into `learner` (algos.dqn.DQN or
+    algos.bdq.BDQ), with a fresh Adam and the update count at 0."""
+    dev = learner.device
+    _load_strict(learner.net, q_state_dict(params, learner.net)).to(dev)
+    _load_strict(learner.target_net, q_state_dict(target_params, learner.target_net)).to(dev)
+    learner.step = 0
+    learner.reset_optimizer()
+    return learner
+
+
 def read_bundle(npz_dir):
     """Read <npz_dir>/policy.npz into (nested policy params, obs_rms dict,
     ret_rms dict, meta)."""
@@ -146,13 +217,20 @@ def read_bundle(npz_dir):
     return _nest(policy), rms["obs_rms"], rms["ret_rms"], meta
 
 
-def load_policy(npz_dir, actor: SACActor, device="cpu"):
-    """Load a committed SAC bundle into `actor`; returns (actor,
-    NormalizerState with the bundle's moments, meta)."""
+BUNDLE_KINDS = {SACActor: ("SAC", "actor_params"), QNetwork: ("DQN", "params"),
+                BDQNetwork: ("BDQ", "params")}
+
+
+def load_policy(npz_dir, actor, device="cpu"):
+    """Load a committed bundle into `actor` (a SACActor, QNetwork or
+    BDQNetwork, which must match the bundle's algorithm); every array is
+    used and the load is strict. Returns (actor, NormalizerState with the
+    bundle's moments, meta)."""
     policy, obs_rms, ret_rms, meta = read_bundle(npz_dir)
-    if meta.get("algo") != "SAC" or meta.get("params_field") != "actor_params":
-        raise ValueError(f"bundle meta {meta} is not a SAC actor bundle")
-    load_actor_params(actor, policy)
+    algo, field = BUNDLE_KINDS[type(actor)]
+    if meta.get("algo") != algo or meta.get("params_field") != field:
+        raise ValueError(f"bundle meta {meta} is not a {algo} bundle")
+    _load_strict(actor, _policy_state_dict(policy, actor))
     actor.to(device)
 
     def rms(d, shape):

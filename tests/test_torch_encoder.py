@@ -24,8 +24,9 @@
     bf16 tolerance of tests/test_torch_networks.py (5e-2); its moments are
     the JAX loader's exactly.
 (e) The refusals: encoder mode without `sensor.encoder_dir` or with no
-    `weights.npz` in it (the JAX package would run a stand-in), and the
-    simplified task.
+    `weights.npz` in it (the JAX package would run a stand-in), and on the
+    simplified task (which now evaluates on 100-wide latents) the RGB-D
+    observation.
 
 Also the env contract for this mode (tests/test_env_contract.py): the
 observation space is (101,) and the full task's first zero-action step
@@ -292,9 +293,23 @@ def test_refuses_a_missing_encoder(tmp_path):
 
 
 def test_refuses_the_simplified_task():
+    """The simplified task is ported: it evaluates on 100-wide latents (no
+    actuator entry, grasp_env.py:191-194). The one simplified setting the
+    port refuses is the RGB-D observation, which the JAX package cannot run
+    either (its observation has 2 channels where its obs_shape says 5)."""
+    from deep_rl_grasping_tpu_torch.algos.normalize import NormalizerState
+    from deep_rl_grasping_tpu_torch.models.networks import SACActor
+
     cfg = encoder_config()
     cfg["simplified"] = True
-    with pytest.raises(NotImplementedError, match="simplified"):
+    cfg["time_horizon"] = 1
+    cfg["tpu"]["move_substeps"] = 2
+    torch.manual_seed(0)
+    res = Evaluator(cfg, device="cpu").evaluate(SACActor((100,), 3, (16, 16)),
+                                                NormalizerState.init((100,), 1), n_episodes=1)
+    assert res["episodes"] == 1 and res["control_steps"] == 1
+    cfg.update(depth_observation=True, full_observation=True)
+    with pytest.raises(ValueError, match="simplified"):
         Evaluator(cfg, device="cpu").evaluate(None, None, n_episodes=1)
 
 

@@ -1,4 +1,5 @@
-"""The JAX package's own validation scenes of the r5c bundle, in the port.
+"""The JAX package's own validation scenes of the r5c bundle and of the
+simplified-task bundles, in the port.
 
 `deep_rl_grasping_tpu_torch/data/r5c_val_scenes.npz` holds the 100 env
 states that the JAX package's protocol evaluation of
@@ -30,9 +31,25 @@ changes are scaled by 1000), dones exactly, gripper coordinates and object
 positions to 1e-5 m (16 substeps of float32 contact solving in two
 summation orders; the gaps seen are under 1e-7 m).
 
-Rebuild the file (JAX on the CPU, about two minutes):
+`deep_rl_grasping_tpu_torch/data/simplified_r5_val_scenes.npz` holds the
+same for `trained/bdq_simplified_r5` (simplified task, encoder latents;
+its curriculum and gripper start differ from r5c's, so its scenes do too):
+the first 8 observations are 100-wide latents of the Pallas render through
+the JAX package's encoder, the actions are the BDQ policy's greedy bins
+(the port's network; tests/test_torch_discrete.py holds it against Flax),
+and the step is the simplified task's three-call step with branched
+actions at the BDQ block's 8 pads. There the latents are held to 3e-2
+(tests/test_torch_encoder.py: the port's plain render may flip an edge
+pixel's id), the bins exactly where the top two Q values of a branch are
+more than 2e-2 apart (bf16 layers), and after the step rewards and
+statuses exactly, gripper coordinates and object positions to 1e-4 m
+(40 substeps of float32 contact solving in two summation orders).
+
+Rebuild the files (JAX on the CPU, a few minutes each):
 
     JAX_PLATFORMS=cpu python tests/test_torch_eval_scenes.py --rebuild
+    JAX_PLATFORMS=cpu python tests/test_torch_eval_scenes.py --rebuild \
+        trained/bdq_simplified_r5
 
 Another bundle whose config differs in no scene, curriculum, camera or
 simulation key starts from the same scenes; check that it does (about a
@@ -40,6 +57,8 @@ minute; exit code 0 when every array is equal):
 
     JAX_PLATFORMS=cpu python tests/test_torch_eval_scenes.py \
         --compare trained/sac_encoder_flagship_r5
+    JAX_PLATFORMS=cpu python tests/test_torch_eval_scenes.py \
+        --compare trained/dqn_simplified_r5
 """
 
 import os
@@ -54,12 +73,19 @@ sys.path.insert(0, REPO)
 
 from deep_rl_grasping_tpu_torch.algos import normalize as norm_mod  # noqa: E402
 from deep_rl_grasping_tpu_torch.algos import sac  # noqa: E402
+from deep_rl_grasping_tpu_torch.algos.bdq import BDQ  # noqa: E402
 from deep_rl_grasping_tpu_torch.envs import grasp_env as tenv  # noqa: E402
 from deep_rl_grasping_tpu_torch.envs import rewards as trew  # noqa: E402
 from deep_rl_grasping_tpu_torch.training import train as ttrain  # noqa: E402
+from deep_rl_grasping_tpu_torch.utils import io_utils  # noqa: E402
 
 BUNDLE = os.path.join(REPO, "trained", "sac_full_flagship_r5c")
 SCENES_R5C_VAL = os.path.join(REPO, "deep_rl_grasping_tpu_torch", "data", "r5c_val_scenes.npz")
+BDQ_BUNDLE = os.path.join(REPO, "trained", "bdq_simplified_r5")
+SCENES_SIMP_VAL = os.path.join(REPO, "deep_rl_grasping_tpu_torch", "data",
+                               "simplified_r5_val_scenes.npz")
+# the scenes file each bundle's JAX validation scenes are stored in
+SCENE_FILES = {BUNDLE: SCENES_R5C_VAL, BDQ_BUNDLE: SCENES_SIMP_VAL}
 N_EPISODES = 100  # the protocol
 N_CHECK = 8       # envs whose observation and first step are stored
 
@@ -81,16 +107,24 @@ def _flat(s):
 
 
 def jax_val_scenes(bundle):
-    """The JAX package's eval env of a bundle's config and the 100 states
-    its protocol evaluation starts from."""
+    """The JAX package's eval env of a bundle's config (with its trained
+    encoder, and for BDQ its action interface, as the JAX trainer builds
+    them) and the 100 states its protocol evaluation starts from."""
+    import dataclasses
+
     import jax
     import jax.numpy as jnp
 
     from deep_rl_grasping_tpu.envs import grasp_env as jenv
+    from deep_rl_grasping_tpu.training.trainer import _maybe_load_encoder
     from deep_rl_grasping_tpu.utils import config as jcfg
 
     cfg = jcfg.load_config(os.path.join(bundle, "config.yaml"))
-    je = jenv.GraspEnv(cfg, evaluate=True, validate=True)
+    je = jenv.GraspEnv(cfg, evaluate=True, validate=True, encoder_fn=_maybe_load_encoder(cfg))
+    if cfg.get("algorithm") == "bdq":
+        je.branched_actions = True
+        je.actuator_spec = dataclasses.replace(
+            je.actuator_spec, num_actions_pad=int(cfg["BDQ"]["num_actions_pad"]))
     jb = jenv.BatchedGraspEnv(je, N_EPISODES, use_pallas=False)
     cur = jb.init_curriculum()
     cur = cur.replace(lam=jnp.asarray(1.0, jnp.float32))
@@ -98,7 +132,7 @@ def jax_val_scenes(bundle):
     return cfg, je, states
 
 
-def same_scenes(bundle, path=SCENES_R5C_VAL):
+def same_scenes(bundle, path):
     """Whether another bundle's JAX validation scenes are the file's
     (run by hand, see the docstring); returns the keys that differ."""
     _, _, states = jax_val_scenes(bundle)
@@ -108,32 +142,36 @@ def same_scenes(bundle, path=SCENES_R5C_VAL):
                   or not np.array_equal(data["scene." + k], got[k]))
 
 
-def build_scenes(path=SCENES_R5C_VAL):
-    """Build the npz with the JAX package (run by hand, see the docstring)."""
+def build_scenes(bundle=BUNDLE):
+    """Build a bundle's npz with the JAX package (run by hand, see the
+    docstring)."""
     import jax
     import jax.numpy as jnp
 
     from deep_rl_grasping_tpu.envs import grasp_env as jenv
+    from deep_rl_grasping_tpu_torch.training.trainer import act
     from tests.test_torch_env import _pallas_obs
 
-    cfg, je, states = jax_val_scenes(BUNDLE)
+    path = SCENE_FILES[bundle]
+    cfg, je, states = jax_val_scenes(bundle)
 
     first = jax.tree.map(lambda x: x[:N_CHECK], states)
     obs = _pallas_obs(je, first)
-    _, actor, normalizer = ttrain.load_bundle_actor(BUNDLE, "cpu")
+    _, policy, normalizer = ttrain.load_bundle_actor(bundle, "cpu")
     obs_in = torch.as_tensor(np.array(obs))
     if cfg.get("normalize", False):
         obs_in = norm_mod.normalize_obs(normalizer, obs_in)
     with torch.no_grad():
-        actions = sac.act(actor, obs_in, torch.Generator(), deterministic=True).numpy()
+        actions = act(policy, obs_in, torch.Generator(), deterministic=True).numpy()
     jb8 = jenv.BatchedGraspEnv(je, N_CHECK, use_pallas=False)
     cur8 = jb8.init_curriculum()
     cur8 = cur8.replace(lam=jnp.asarray(1.0, jnp.float32))
     stepped, _, reward, done, _, _ = jax.jit(jb8.step)(first, jnp.asarray(actions), cur8)
     out = {f"scene.{k}": v for k, v in _flat(states).items()}
     out.update({f"step.{k}": v for k, v in _flat(stepped).items()})
-    out.update({"obs": obs.astype(np.float32), "actions": actions.astype(np.float32),
-                "step.reward": np.asarray(reward), "step.done": np.asarray(done)})
+    out.update({"obs": obs.astype(np.float32), "step.reward": np.asarray(reward),
+                "step.done": np.asarray(done),
+                "actions": actions if isinstance(policy, BDQ) else actions.astype(np.float32)})
     os.makedirs(os.path.dirname(path), exist_ok=True)
     np.savez_compressed(path, **out)
     return path
@@ -246,6 +284,88 @@ def test_evaluate_starts_from_given_states(scenes):
                                               initial_states=states)
 
 
+# ------------------------------------------------------------------ simplified
+
+@pytest.fixture(scope="module")
+def simp_scenes():
+    from deep_rl_grasping_tpu_torch.training.trainer import (_maybe_load_encoder,
+                                                             set_action_interface)
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    data = np.load(SCENES_SIMP_VAL)
+    config, policy, _ = ttrain.load_bundle_actor(BDQ_BUNDLE, "cpu")
+    env = tenv.GraspEnv(config, evaluate=True, validate=True, device="cpu",
+                        encoder=_maybe_load_encoder(config, "cpu"))
+    set_action_interface(env, "BDQ", config)
+    states = tenv.env_state_from_numpy(_part(data, "scene."))
+    yield data, config, policy, env, states
+    torch.set_num_threads(n)
+
+
+def test_simplified_scenes_load_into_the_port(simp_scenes):
+    """100 fresh episodes at lambda 1: the gripper at the curriculum's
+    highest start (0.27 m), up to 5 objects of the validation split."""
+    data, _, _, env, states = simp_scenes
+    assert env.simplified and env.branched_actions and env.actuator_spec.num_actions_pad == 8
+    assert states.sim.objects.pos.shape == (N_EPISODES, env.max_slots, 3)
+    assert bool((states.episode_step == 0).all()) and bool((states.status == trew.RUNNING).all())
+    np.testing.assert_allclose(states.sim.gripper.q[:, 2].numpy(), 0.27, atol=1e-6)
+    np.testing.assert_allclose(states.reward_state.old_height.numpy(), 0.27, atol=1e-6)
+    alive_types = states.sim.objects.obj_type[states.sim.objects.alive]
+    assert bool(torch.isin(alive_types, env.type_ids).all())
+    again = tenv.env_state_to_numpy(states)
+    for k, v in _part(data, "scene.").items():
+        np.testing.assert_array_equal(again[k], v.astype(again[k].dtype), err_msg=k)
+
+
+def test_simplified_first_observation_and_bins_match_jax(simp_scenes):
+    """The port's latents of the first 8 scenes to 3e-2 of the JAX ones; the
+    BDQ policy's greedy bins on them equal to the stored ones wherever the
+    top two Q values of a branch are further apart than twice the largest
+    change the port's observation makes to any Q value."""
+    data, _, policy, env, states = simp_scenes
+    benv = tenv.BatchedGraspEnv(env, N_CHECK, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        obs = benv.observe_batch(_first(states))
+        q_own = policy.net(obs).numpy()
+        q_ref = policy.net(torch.as_tensor(data["obs"])).numpy()
+    assert obs.shape == data["obs"].shape == (N_CHECK, 100)
+    np.testing.assert_allclose(obs.numpy(), data["obs"], atol=3e-2, rtol=0)
+    np.testing.assert_array_equal(q_ref.argmax(-1), data["actions"])
+    top2 = np.sort(q_ref, -1)[..., -2:]
+    clear = top2[..., 1] - top2[..., 0] > 2 * np.abs(q_own - q_ref).max()
+    np.testing.assert_array_equal(q_own.argmax(-1)[clear], data["actions"][clear])
+    assert clear.any()
+
+
+def test_simplified_one_control_step_matches_jax(simp_scenes):
+    """The simplified three-call step with the stored bins: rewards, dones
+    and statuses exactly, gripper coordinates and object positions of the
+    envs that go on to 1e-4 m; bit-equal when repeated."""
+    data, _, _, env, states = simp_scenes
+    benv = tenv.BatchedGraspEnv(env, N_CHECK, torch.Generator().manual_seed(0))
+    cur = benv.init_curriculum()
+    cur = cur.replace(lam=torch.full_like(cur.lam, 1.0))
+    first, bins = _first(states), torch.as_tensor(data["actions"])
+    with torch.no_grad():
+        runs = [benv.step(first, bins, cur) for _ in range(2)]
+    (s1, o1, r1, d1, i1, _), (s2, o2, r2, d2, _, _) = runs
+    assert torch.equal(o1, o2) and torch.equal(r1, r2) and torch.equal(d1, d2)
+    assert torch.equal(s1.sim.objects.pos, s2.sim.objects.pos)
+    ref = _part(data, "step.")
+    np.testing.assert_array_equal(d1.numpy(), ref["done"])
+    np.testing.assert_array_equal(r1.numpy(), ref["reward"])
+    got = tenv.env_state_to_numpy(s1)
+    live = ~ref["done"]
+    np.testing.assert_array_equal(got["status"][live], ref["status"][live])
+    for key in ("gripper.q", "gripper.target", "objects.pos"):
+        np.testing.assert_allclose(got[key][live], ref[key][live], atol=1e-4, rtol=0, err_msg=key)
+    # the step descended 5 mm and moved the grippers sideways by the bins
+    np.testing.assert_allclose(got["gripper.target"][live, 2], 0.265, atol=1e-6)
+    assert float(np.abs(ref["gripper.q"][:, :2]).max()) > 1e-2
+
+
 if __name__ == "__main__":
     usage = ("usage: JAX_PLATFORMS=cpu python tests/test_torch_eval_scenes.py "
              "--rebuild | --compare <bundle dir>")
@@ -255,9 +375,12 @@ if __name__ == "__main__":
 
     jax.config.update("jax_platforms", "cpu")
     if sys.argv[1] == "--rebuild":
-        print("wrote", build_scenes())
+        print("wrote", build_scenes(os.path.abspath(sys.argv[2]) if len(sys.argv) > 2
+                                    else BUNDLE))
     else:
-        differ = same_scenes(sys.argv[2])
+        cfg = io_utils.load_yaml(os.path.join(sys.argv[2], "config.yaml"))
+        path = SCENES_SIMP_VAL if cfg.get("simplified") else SCENES_R5C_VAL
+        differ = same_scenes(sys.argv[2], path)
         print(f"{sys.argv[2]}: validation scenes", "differ in " + ", ".join(differ) if differ
-              else f"equal to {os.path.relpath(SCENES_R5C_VAL, REPO)}")
+              else f"equal to {os.path.relpath(path, REPO)}")
         sys.exit(1 if differ else 0)
