@@ -52,7 +52,18 @@ just before and read just after:
   configs/dqn_simplified.yaml at full width (128 envs, 64 prioritized
   updates of batch 64 per iteration, the 1M-row ring of 100-wide latents),
   cut as TRAIN_CUTS cuts the SAC runs, and `run --model` on each
-  checkpoint (`train_bdq`, `run_model_bdq`, `train_dqn`, `run_model_dqn`).
+  checkpoint (`train_bdq`, `run_model_bdq`, `train_dqn`, `run_model_dqn`);
+* resume: the BDQ run resumed with `train --load_dir` for another
+  TRAIN_CUTS frames at the same width. First a fresh trainer takes the
+  checkpoint and the ring snapshot through the functions `train` restores
+  them with, and must hold the saved learner state (params, targets, Adam
+  state, update count) and the newest min(size, 65536) ring rows with their
+  priorities, the seam's rows done; then the resumed run goes through the
+  entry point, launches counted (`resume`); then `tools/export_policy`
+  writes a bundle of its checkpoint, and `run --npz` of the bundle and
+  `run --model` of the checkpoint, both from the JAX package's validation
+  scenes, must give the same success rate and the same first-step greedy
+  actions (`export`, `run_npz_vs_model`).
 
 Each phase prints one JSON line with its elapsed seconds. The last three
 lines are the card's name and power limit (nvidia-smi), one JSON object
@@ -68,6 +79,7 @@ Imports only the standard library, numpy, torch and the port.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -623,24 +635,14 @@ def band_2sigma(p, n=EPISODES):
     return [p - half, p + half]
 
 
-def same_scene_evals(bundle, scene_arrays, dev):
-    """The bundle evaluated twice from the stored scenes; raises unless both
-    runs agree exactly. Returns both results with their wall seconds."""
+def same_scene_evals(bundle, scenes):
+    """`run --npz bundle --scenes scenes` twice; raises unless both runs
+    agree exactly. Returns both results with their wall seconds."""
     import numpy as np
-    import torch
 
-    from deep_rl_grasping_tpu_torch.envs.grasp_env import env_state_from_numpy
-    from deep_rl_grasping_tpu_torch.training import train, trainer
+    from deep_rl_grasping_tpu_torch.training import train
 
-    config, actor, norm = train.load_bundle_actor(bundle, dev)
-    same = []
-    for _ in range(2):
-        evaluator = trainer.Evaluator(config, dev)
-        t0 = time.perf_counter()
-        r = evaluator.evaluate(actor, norm, n_episodes=EPISODES,
-                               initial_states=env_state_from_numpy(scene_arrays, dev))
-        torch.cuda.synchronize()
-        same.append(dict(r, wall_seconds=time.perf_counter() - t0))
+    same = [train.main(["run", "--npz", bundle, "--scenes", scenes]) for _ in range(2)]
     if same[0]["episodes"] != EPISODES or not np.isfinite(same[0]["mean_return"]):
         raise RuntimeError(f"same-scene evaluation of {bundle} is malformed: {same[0]}")
     if any(same[0][k] != same[1][k] for k in ("success_rate", "mean_return", "mean_length")):
@@ -648,9 +650,10 @@ def same_scene_evals(bundle, scene_arrays, dev):
     return same
 
 
-def train_and_run(phase, config_path, raster_key, run_phase, algo="SAC"):
+def train_and_run(phase, config_path, raster_key, run_phase, algo="SAC", root=None):
     """`train --algo algo` on `config_path` at full width with only
-    TRAIN_CUTS cut, into a temporary directory, launches counted from just
+    TRAIN_CUTS cut, into a temporary directory (or `root`, which keeps the
+    config as config.yaml and the run as run/), launches counted from just
     before to just after; then `run --model` on its checkpoint. Logs
     `<phase>_start`, `<phase>` and `run_phase`; raises unless the solver
     and the raster launch `raster_key` were launched, every update ran and
@@ -674,7 +677,8 @@ def train_and_run(phase, config_path, raster_key, run_phase, algo="SAC"):
     prioritized = bool(algo_cfg.get("prioritized_replay", False)) and algo != "SAC"
     loss_keys = (("critic_loss", "actor_loss", "bc_loss", "alpha_loss", "q_target_mean",
                   "entropy") if algo == "SAC" else ("loss", "td_abs"))
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+    with (contextlib.nullcontext(root) if root else
+          tempfile.TemporaryDirectory(prefix="chip_smoke_train_")) as tmp:
         cfg_path = os.path.join(tmp, "config.yaml")
         io_utils.save_yaml(cfg, cfg_path)
         model_dir = os.path.join(tmp, "run")
@@ -728,10 +732,127 @@ def train_and_run(phase, config_path, raster_key, run_phase, algo="SAC"):
             launches=read_counts(solver_cuda, raster_cuda))
         if ev["episodes"] != EPISODES or not np.isfinite(ev["mean_return"]):
             raise RuntimeError(f"run --model result ({run_phase}) is malformed: {ev}")
+    return dict(launches, replay_rows=tr["replay_rows"], frames=tr["frames"])
+
+
+def _same_state(a, b):
+    """Exact equality of two checkpoint payloads (nested dicts, lists,
+    tensors, numbers)."""
+    import torch
+
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_same_state(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same_state(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b.to(a.device))
+    return a == b
+
+
+def resume_and_export(root, first, dev):
+    """The `resume` phase on the BDQ run that `train_and_run` left in
+    `root` (see the module docstring). `first` holds that run's frames and
+    replay rows. Returns the resumed run's launch counts."""
+    import numpy as np
+    import torch
+
+    from deep_rl_grasping_tpu_torch.envs.grasp_env import BatchedGraspEnv, GraspEnv
+    from deep_rl_grasping_tpu_torch.ops import raster_cuda, solver_cuda
+    from deep_rl_grasping_tpu_torch.tools import export_policy
+    from deep_rl_grasping_tpu_torch.training import callbacks as cb
+    from deep_rl_grasping_tpu_torch.training import train, trainer
+    from deep_rl_grasping_tpu_torch.utils import config as cfg_util
+
+    cfg_path, run = os.path.join(root, "config.yaml"), os.path.join(root, "run")
+    cfg = cfg_util.load_config(cfg_path)
+    rows = train.ring_settings(cfg["tpu"])[0]
+    want_rows = min(first["replay_rows"], rows)
+
+    # the learner and the ring as the entry point restores them, on a fresh
+    # trainer at full width, against the saved files
+    t = trainer.Trainer(cfg, algo="BDQ", device=dev, seed=1)
+    state = t.init_state()
+    saved = cb.Checkpointer(run).restore(device=dev)
+    state = train.restore_learner(t, state, saved, first["frames"])
+    snap = cb.RingCheckpointer(run).restore_raw()
+    t0 = time.perf_counter()
+    restored = train.restore_ring(t, state, snap)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    buf, R = state.buffer, snap["obs"].shape[0]
+    learner_equal = _same_state(t.algo.state_dict(), saved["algo_state"])
+    rows_equal = all(torch.equal(getattr(buf, k)[:R].cpu(), snap[k])
+                     for k in ("obs", "action", "reward"))
+    priorities_equal = torch.equal(buf.priority[:R].cpu(), snap["priority"])
+    seam_done = bool(buf.done[R - buf.batch_stride:R].all())
+    done_equal = torch.equal(buf.done[:R - buf.batch_stride].cpu(),
+                             snap["done"][:R - buf.batch_stride])
+    off_one = int((snap["priority"] != 1.0).sum())
+    counts_on_cpu = all(st["step"].device.type == "cpu" for st in t.algo.opt.state.values())
+    del t, state, buf
+
+    # the resumed run through the entry point, launches counted
+    target = 2 * first["frames"]
+    resumed = os.path.join(root, "resumed")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(solver_cuda, raster_cuda)
+    tr = train.main(["train", "--config", cfg_path, "--algo", "BDQ", "--model_dir", resumed,
+                     "--load_dir", run, "--timestep", str(target), "--seed", "0"])
+    launches = read_counts(solver_cuda, raster_cuda)
+    (env_s, n_iter), (upd_s, _) = tr["phase_seconds"]["env"], tr["phase_seconds"]["update"]
+    log("resume", resume_frames=tr["resume_frames"], frames=tr["frames"], done=tr["done"],
+        ring_rows_restored=tr["ring_rows_restored"], expected_ring_rows=want_rows,
+        snapshot_rows=R, priorities_equal=priorities_equal, rows_off_priority_1=off_one,
+        seam_done=seam_done, done_flags_equal=done_equal, ring_rows_equal=rows_equal,
+        learner_state_equal=learner_equal, adam_counts_on_cpu=counts_on_cpu,
+        ring_restore_seconds=restore_s,
+        entry_ring_restore_seconds=tr["ring_restore_seconds"],
+        ring_save={k: tr["ring_save"][k] for k in ("rows", "bytes", "seconds")},
+        wall_seconds=tr["wall_seconds"], updates=tr["updates"],
+        ms_per_env_step=env_s / n_iter * 1e3,
+        ms_per_update=upd_s / max(tr["updates"] - saved["algo_state"]["step"], 1) * 1e3,
+        end_to_end_frames_per_s=(tr["frames"] - tr["resume_frames"]) / tr["wall_seconds"],
+        max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches=launches)
+    if not (learner_equal and rows_equal and priorities_equal and seam_done and done_equal
+            and restored == want_rows and off_one > 0 and counts_on_cpu):
+        raise RuntimeError("the restored learner or ring differs from the saved one")
+    if (tr["resume_frames"] != first["frames"] or tr["frames"] != target or not tr["done"]
+            or tr["ring_rows_restored"] != want_rows):
+        raise RuntimeError(f"the resumed run is malformed: {tr}")
+    if min(launches["solver"], launches["raster"]) <= 0:
+        raise RuntimeError(f"a kernel of the resume path was not launched: {launches}")
+
+    # export, then `run --npz` of the bundle against `run --model` of the
+    # checkpoint, from the JAX package's validation scenes
+    out = os.path.join(root, "bundle")
+    info = export_policy.main([resumed, "--out", out, "--latest"])
+    log("export", bundle_bytes=os.path.getsize(info["path"]), source=info["source"],
+        checkpoint_step=info["checkpoint_step"], files=sorted(os.listdir(out)))
+    res_npz = train.main(["run", "--npz", out, "--scenes", SIMP_SCENES])
+    res_model = train.main(["run", "--model", resumed, "--scenes", SIMP_SCENES])
+    _, pol_npz, _ = train.load_bundle_actor(out, dev)
+    config, pol_model, _ = train.load_checkpoint_actor(resumed, dev)
+    env = GraspEnv(config, evaluate=True, validate=True, device=dev,
+                   encoder=trainer._maybe_load_encoder(config, dev))
+    trainer.set_action_interface(env, "BDQ", config)
+    states = train.load_scenes(SIMP_SCENES, dev)
+    obs = BatchedGraspEnv(env, EPISODES, torch.Generator(device=dev)).observe_batch(states)
+    a_npz, a_model = pol_npz.act(obs), pol_model.act(obs)
+    actions_equal = torch.equal(a_npz, a_model)
+    log("run_npz_vs_model", scenes=SIMP_SCENES, success_rate_npz=res_npz["success_rate"],
+        success_rate_model=res_model["success_rate"],
+        mean_return_npz=res_npz["mean_return"], mean_return_model=res_model["mean_return"],
+        episodes=res_npz["episodes"], first_step_actions_equal=actions_equal,
+        first_step_actions_distinct=int(torch.unique(a_npz, dim=0).shape[0]))
+    if not actions_equal or any(res_npz[k] != res_model[k] for k in
+                                ("success_rate", "mean_return", "mean_length", "episodes")):
+        raise RuntimeError(f"run --npz of the export ({res_npz}) differs from run --model "
+                           f"of the checkpoint ({res_model})")
     return launches
 
 
-def encoder_check(scene_arrays, dev):
+def encoder_check(st, dev):
     """The trained encoder of the encoder bundle on the card against the
     same module on the CPU, on the masked depth images the raster kernel
     renders for the stored scenes (B=100); and the latents of the kernel's
@@ -739,7 +860,7 @@ def encoder_check(scene_arrays, dev):
     disagreement or a non-finite latent."""
     import torch
 
-    from deep_rl_grasping_tpu_torch.envs.grasp_env import GraspEnv, env_state_from_numpy
+    from deep_rl_grasping_tpu_torch.envs.grasp_env import GraspEnv
     from deep_rl_grasping_tpu_torch.ops import raster_cuda
     from deep_rl_grasping_tpu_torch.render import raycast
     from deep_rl_grasping_tpu_torch.training import trainer
@@ -749,7 +870,6 @@ def encoder_check(scene_arrays, dev):
     enc = trainer._maybe_load_encoder(config, dev)
     enc_cpu = trainer._maybe_load_encoder(config, "cpu")
     env = GraspEnv(config, evaluate=True, validate=True, device=dev, encoder=enc)
-    st = env_state_from_numpy(scene_arrays, dev)
     cam_pos, cam_R = raycast.camera_pose_from_gripper(st.sim.gripper.q, st.cam_t, st.cam_R)
     args = (st.sim, env.sim_params, cam_pos, cam_R, st.intrinsics, env.im_h, env.im_w,
             env.near, env.far)
@@ -890,9 +1010,7 @@ def main():
     # ---- 5b. the same bundle from the JAX package's own 100 validation
     # scenes (its PRNGKey(1) reset), twice: a check of scene luck against
     # the JAX figure, and of determinism (both runs must agree exactly)
-    with np.load(SCENES) as data:
-        scene_arrays = {k[len("scene."):]: data[k] for k in data.files if k.startswith("scene.")}
-    same = same_scene_evals(BUNDLE, scene_arrays, dev)
+    same = same_scene_evals(BUNDLE, SCENES)
     log("eval_same_scenes", scenes=SCENES,
         success_rate=same[0]["success_rate"], mean_return=same[0]["mean_return"],
         episodes=same[0]["episodes"], control_steps=same[0]["control_steps"],
@@ -905,7 +1023,7 @@ def main():
     train_launches = train_and_run("train", TRAIN_CONFIG, "raster_shade", "run_model")
 
     # ---- 8. the encoder: card vs CPU, kernel's render vs the plain one
-    encoder_check(scene_arrays, dev)
+    encoder_check(train.load_scenes(SCENES, dev), dev)
 
     # ---- 9. eval_encoder: `run --npz` of the encoder-latent bundle through
     # the entry point, launches counted; then twice from the JAX package's
@@ -913,7 +1031,7 @@ def main():
     reset_counts(solver_cuda, raster_cuda)
     res_e = train.main(["run", "--npz", ENCODER_BUNDLE, "--episodes", str(EPISODES)])
     enc_launches = read_counts(solver_cuda, raster_cuda)
-    same_e = same_scene_evals(ENCODER_BUNDLE, scene_arrays, dev)
+    same_e = same_scene_evals(ENCODER_BUNDLE, SCENES)
     sr_e, band_e = same_e[0]["success_rate"], band_2sigma(JAX_VAL[ENCODER_BUNDLE])
     log("eval_encoder", bundle=ENCODER_BUNDLE, episodes=res_e["episodes"],
         torch_scenes_success_rate=res_e["success_rate"],
@@ -959,14 +1077,12 @@ def main():
     # ---- 12. eval_bdq, eval_dqn: `run --npz` of the simplified-task
     # bundles through the entry point, launches counted; then each twice
     # from the JAX package's validation scenes of these bundles
-    with np.load(SIMP_SCENES) as data:
-        simp_arrays = {k[len("scene."):]: data[k] for k in data.files if k.startswith("scene.")}
     simp_launches = {}
     for phase, bundle in (("eval_bdq", BDQ_BUNDLE), ("eval_dqn", DQN_BUNDLE)):
         reset_counts(solver_cuda, raster_cuda)
         res_s = train.main(["run", "--npz", bundle, "--episodes", str(EPISODES)])
         simp_launches[phase] = read_counts(solver_cuda, raster_cuda)
-        same_s = same_scene_evals(bundle, simp_arrays, dev)
+        same_s = same_scene_evals(bundle, SIMP_SCENES)
         sr_s, band_s = same_s[0]["success_rate"], band_2sigma(JAX_VAL[bundle])
         log(phase, bundle=bundle, episodes=res_s["episodes"],
             torch_scenes_success_rate=res_s["success_rate"],
@@ -989,8 +1105,14 @@ def main():
 
     # ---- 13. train_bdq, train_dqn: `train` on the simplified configs at
     # full width, prioritized, then `run --model` on each checkpoint
-    simp_launches["train_bdq"] = train_and_run("train_bdq", BDQ_TRAIN_CONFIG, "raster",
-                                               "run_model_bdq", algo="BDQ")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bdq_") as bdq_root:
+        first = train_and_run("train_bdq", BDQ_TRAIN_CONFIG, "raster", "run_model_bdq",
+                              algo="BDQ", root=bdq_root)
+        simp_launches["train_bdq"] = first
+
+        # ---- 14. resume: `train --load_dir` on the BDQ run, export, and
+        # `run --npz` of the export against `run --model` of the checkpoint
+        simp_launches["resume"] = resume_and_export(bdq_root, first, dev)
     simp_launches["train_dqn"] = train_and_run("train_dqn", DQN_TRAIN_CONFIG, "raster",
                                                "run_model_dqn", algo="DQN")
 

@@ -25,6 +25,7 @@ import copy
 import torch
 import torch.nn.functional as F
 
+from deep_rl_grasping_tpu_torch.algos.sac import load_optimizer
 from deep_rl_grasping_tpu_torch.models.networks import QNetwork
 
 
@@ -117,7 +118,7 @@ class QLearner:
     def load_state_dict(self, sd):
         self.net.load_state_dict(sd["net"])
         self.target_net.load_state_dict(sd["target_net"])
-        self.opt.load_state_dict(sd["opt"])
+        load_optimizer(self.opt, sd["opt"])
         self.step = int(sd["step"])
 
 

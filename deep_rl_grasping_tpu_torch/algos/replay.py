@@ -1,7 +1,8 @@
 """Device-resident replay with n-step returns, uniform or prioritized
 (port of deep_rl_grasping_tpu/algos/replay.py: `create` :43, `insert` :68,
 `_valid_range` :84, `_nstep_gather` :90, `sample` :109,
-`sample_prioritized` :155, `update_priorities` :194).
+`sample_prioritized` :155, `update_priorities` :194, `snapshot` :197,
+`restore_snapshot` :226).
 
 Observations are stored once, as flat bfloat16 rows (C, prod(obs_shape)) in
 the JAX package's NHWC order; the next observation of frame t is the row one
@@ -21,7 +22,10 @@ weights each drawn row by (N P(i))^-beta / max w; `update_priorities` sets
 the drawn rows to |TD| + 1e-6. Discrete actions are stored as integers
 (the trainer creates the ring with an int32 action column).
 
-Ring snapshots (:197-254) are not ported yet.
+A ring snapshot holds the newest rows of the ring in ring order, with
+their priorities, for a checkpoint that a resumed run restores before it
+collects again (training/train.py). It is gathered on the device and
+copied to the host once per column.
 """
 
 from __future__ import annotations
@@ -174,4 +178,39 @@ def update_priorities(buf: ReplayBuffer, idx, td_errors, eps=1e-6) -> ReplayBuff
     """Set the priorities of ring rows `idx` to |TD| + eps (a row drawn
     twice keeps one of its two values)."""
     buf.priority[idx] = torch.abs(td_errors).to(buf.priority.dtype) + eps
+    return buf
+
+
+def snapshot(buf: ReplayBuffer, rows) -> dict:
+    """The newest `rows` frames in ring order (`rows` capped at the
+    capacity and rounded down to the batch stride), as host tensors, with
+    `n` = min(size, rows), the count of written rows among them (the
+    leading rows are unwritten slots early in a run) and the stride."""
+    rows = int(min(rows, buf.capacity))
+    rows -= rows % buf.batch_stride
+    idx = (buf.ptr - rows + torch.arange(rows, device=buf.reward.device)) % buf.capacity
+    snap = {k: getattr(buf, k)[idx].cpu()
+            for k in ("obs", "action", "reward", "done", "priority")}
+    snap.update(n=min(buf.size, rows), batch_stride=buf.batch_stride)
+    return snap
+
+
+def restore_snapshot(buf: ReplayBuffer, snap) -> ReplayBuffer:
+    """Write a `snapshot` into a fresh buffer: its rows land at slots
+    [0, rows), the write pointer continues at rows % capacity and the fill
+    count is the snapshot's `n`. The last `batch_stride` restored rows are
+    marked done, since their ring successors will be frames of unrelated
+    episodes: neither TD(0) nor the n-step gather bootstraps across the
+    seam."""
+    rows = snap["obs"].shape[0]
+    if rows > buf.capacity or rows % buf.batch_stride:
+        raise ValueError(f"ring snapshot ({rows} rows, stride {int(snap['batch_stride'])}) "
+                         f"incompatible with buffer (capacity {buf.capacity}, stride "
+                         f"{buf.batch_stride})")
+    for k in ("obs", "action", "reward", "done", "priority"):
+        col = getattr(buf, k)
+        col[:rows] = snap[k].to(device=col.device, dtype=col.dtype)
+    buf.done[max(rows - buf.batch_stride, 0):rows] = True
+    buf.ptr = rows % buf.capacity
+    buf.size = int(snap["n"])
     return buf

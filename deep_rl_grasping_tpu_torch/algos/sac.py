@@ -24,6 +24,17 @@ import torch
 from deep_rl_grasping_tpu_torch.models.networks import SACActor, SACCritic
 
 
+def load_optimizer(opt, sd):
+    """Load an optimizer's state_dict, its Adam step counts kept on the CPU
+    as a fresh Adam keeps them. torch leaves a loaded step count on the
+    device it was loaded to, and a step count on the card costs a host sync
+    per parameter and update, which slowed resumed runs down."""
+    opt.load_state_dict(sd)
+    for state in opt.state.values():
+        if isinstance(state.get("step"), torch.Tensor):
+            state["step"] = state["step"].cpu()
+
+
 @torch.no_grad()
 def act(actor: SACActor, obs, generator: torch.Generator = None, deterministic=False):
     """tanh(mean) when deterministic, else a squashed-Gaussian sample drawn
@@ -202,7 +213,7 @@ class SAC:
         self.target_critic.load_state_dict(sd["target_critic"])
         with torch.no_grad():
             self.log_alpha.copy_(sd["log_alpha"])
-        self.actor_opt.load_state_dict(sd["actor_opt"])
-        self.critic_opt.load_state_dict(sd["critic_opt"])
-        self.alpha_opt.load_state_dict(sd["alpha_opt"])
+        load_optimizer(self.actor_opt, sd["actor_opt"])
+        load_optimizer(self.critic_opt, sd["critic_opt"])
+        load_optimizer(self.alpha_opt, sd["alpha_opt"])
         self.step = int(sd["step"])

@@ -8,10 +8,11 @@ deep_rl_grasping_tpu/training/callbacks.py).
                        <model_dir>/logs (newest 3 kept) and of the best
                        evaluation under <model_dir>/best_model, in place of
                        Orbax.
+* `RingCheckpointer` - the replay-ring snapshot (algos/replay.py
+                       `snapshot`) under <model_dir>/ring, one kept.
 * `TrainingTimer`    - rolling env frames per second.
 
-The replay-ring checkpointer (`RingCheckpointer`) is not ported yet. The
-monitor writes through buffered Python IO (the JAX package's fallback when
+The monitor writes through buffered Python IO (the JAX package's fallback when
 its native CSV writer is not built).
 """
 
@@ -140,6 +141,10 @@ class Checkpointer:
         steps = self._steps(self._dir)
         return steps[-1] if steps else None
 
+    def best_step(self):
+        steps = self._steps(self._best_dir)
+        return steps[-1] if steps else None
+
     @staticmethod
     def _load(directory, step, device):
         if step is None:
@@ -151,8 +156,31 @@ class Checkpointer:
         return self._load(self._dir, self.latest_step() if step is None else step, device)
 
     def restore_best(self, device="cpu"):
-        steps = self._steps(self._best_dir)
-        return self._load(self._best_dir, steps[-1] if steps else None, device)
+        return self._load(self._best_dir, self.best_step(), device)
+
+
+class RingCheckpointer:
+    """Replay-ring snapshots, apart from the learner checkpoints (callbacks.py:
+    275-306): a `torch.save` file per snapshot under <model_dir>/ring, named
+    by frame count, the newest one kept (the newest-rows window supersedes
+    any older one)."""
+
+    def __init__(self, model_dir):
+        self._dir = os.path.abspath(os.path.join(model_dir, "ring"))
+
+    def save(self, step, snap):
+        os.makedirs(self._dir, exist_ok=True)
+        Checkpointer._write(self._dir, step, snap, 1)
+
+    def latest_step(self):
+        steps = Checkpointer._steps(self._dir)
+        return steps[-1] if steps else None
+
+    def restore_raw(self):
+        """The newest snapshot (a dict of host tensors and numbers), or None
+        when there is none."""
+        step = self.latest_step()
+        return None if step is None else Checkpointer._load(self._dir, step, "cpu")
 
 
 class TrainingTimer:

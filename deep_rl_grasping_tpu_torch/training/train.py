@@ -3,10 +3,11 @@ deep_rl_grasping_tpu/training/train.py).
 
     python -m deep_rl_grasping_tpu_torch.training.train train \
         --config configs/sac_rgbd_flagship.yaml --algo SAC|DQN|BDQ \
-        --model_dir <dir> [--timestep N] [--seed S] [-s] [--device cuda|cpu]
+        --model_dir <dir> [--load_dir <dir>] [--timestep N] [--seed S] [-s] \
+        [--device cuda|cpu]
     python -m deep_rl_grasping_tpu_torch.training.train run \
         --model <dir> [-b] | --npz trained/sac_full_flagship_r5c \
-        [--episodes N] [-t] [--stochastic] [--device cuda|cpu]
+        [--episodes N | --scenes <npz>] [-t] [--stochastic] [--device cuda|cpu]
 
 `train` is the single-device off-policy branch of train.py:78-473 for
 SAC, DQN and BDQ (`robot.discrete` is set for the two Q-learners, `-s`
@@ -14,37 +15,57 @@ selects the simplified task): demo seeding and periodic refresh, the chunk
 loop, the monitor, scalar, curriculum and TensorBoard logs, `stop_at_sr`,
 the q-tripwire rollback (SAC with `q_clip`), the eval cadence (protocol
 eval plus the eval at the training lambda), checkpoints and the best
-model, SIGTERM handling and the `done:` / `stopped:` marker. `run`
-evaluates a checkpoint this port wrote (`--model`, latest or `-b` best) or
-a committed SAC, DQN or BDQ policy bundle (`--npz`) on the 100-episode
-protocol (train.py:474). Depth, RGB-D and encoder-latent observations (the
-CNN or the MLP torso, as the config says), the full and the simplified
-task are all taken.
+model, replay-ring snapshots (the newest `tpu.ring_checkpoint_rows` rows
+every `tpu.ring_checkpoint_every` frames and at the end), SIGTERM handling
+and the `done:` / `stopped:` marker. `--load_dir` resumes from the newest
+checkpoint and ring snapshot another `train` of the port wrote
+(train.py:166-247): the learner with its optimizer state, the normalizer
+moments, the curriculum and the frame count, so that epsilon, the
+target-entropy anneal and the eval, checkpoint, ring and demo-refresh
+cadences go on where they were (the JAX loop restarts the cadences at
+0, so a resume there evaluates and checkpoints after its first chunk);
+then the ring, unless its stride or observation width differs from this
+run's; demo seeding runs again, since the demo ring is not saved. Each
+call appends one line to <model_dir>/runs.jsonl (command, seed, card,
+frames; a resume into another directory carries the earlier lines over).
+
+`run` evaluates a checkpoint this port wrote (`--model`, latest or `-b`
+best) or a SAC, DQN or BDQ policy bundle (`--npz`, committed or written
+by tools/export_policy.py) on the 100-episode protocol (train.py:474), or
+from stored scenes (`--scenes`, an npz of env states under `scene.*` such
+as deep_rl_grasping_tpu_torch/data/simplified_r5_val_scenes.npz; one
+episode per scene). Depth, RGB-D and encoder-latent observations (the CNN
+or the MLP torso, as the config says), the full and the simplified task
+are all taken.
 
 Both run on the card unless `--device cpu` is given; with no card and no
-`--device cpu` they stop with an error instead of falling back.
-`--load_dir` resume, replay-ring snapshots and the sharded path are not
-ported yet: `train` refuses `tpu.sharded` and `tpu.update_batch_scale` > 1
-(`trainer.refuse_unported`) and says in its log that ring snapshots are
-off where the JAX trainer would write them.
+`--device cpu` they stop with an error instead of falling back. `train`
+refuses `tpu.sharded` and `tpu.update_batch_scale` > 1
+(`trainer.refuse_unported`).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import math
 import os
 import signal
+import shlex
+import subprocess
+import sys
 import time
 
+import numpy as np
 import torch
 
+from deep_rl_grasping_tpu_torch.algos import replay as replay_mod
 from deep_rl_grasping_tpu_torch.algos.bdq import BDQ
 from deep_rl_grasping_tpu_torch.algos.dqn import DQN
 from deep_rl_grasping_tpu_torch.algos.normalize import NormalizerState, RunningMeanStd
 from deep_rl_grasping_tpu_torch.envs.actuator import ActuatorSpec
-from deep_rl_grasping_tpu_torch.envs.grasp_env import observation_shape
+from deep_rl_grasping_tpu_torch.envs.grasp_env import env_state_from_numpy, observation_shape
 from deep_rl_grasping_tpu_torch.models.networks import SACActor
 from deep_rl_grasping_tpu_torch.training import callbacks as cb
 from deep_rl_grasping_tpu_torch.training.trainer import ALGOS, Evaluator, Trainer
@@ -73,17 +94,26 @@ def _device(name):
     return device
 
 
-def ring_snapshot_note(tpu):
-    """The log line saying that replay-ring snapshots are off, for a config
-    under which the JAX trainer writes them (train.py:206-216: on unless
-    tpu.ring_checkpoint_rows is 0); None otherwise."""
-    rows = int(tpu.get("ring_checkpoint_rows", 65536))
-    if rows <= 0:
+def card_info(device):
+    """The card's name and power limit as nvidia-smi prints them
+    (`name, power.limit`), or None on the CPU or without nvidia-smi."""
+    if device.type != "cuda":
         return None
-    every = int(tpu.get("ring_checkpoint_every", 500_000))
-    return (f"replay-ring snapshots are off in the port: the JAX trainer would save the "
-            f"newest {rows} replay rows every {every} frames and at exit "
-            "(tpu.ring_checkpoint_rows / ring_checkpoint_every; ROADMAP Queue 1 item 3)")
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader", f"--id={device.index or 0}"],
+                             capture_output=True, text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out.splitlines()[0] if out else None
+
+
+def ring_settings(tpu):
+    """(rows, every): the replay-ring snapshot of a config, the newest
+    `rows` rows every `every` frames and at the end of `train`; rows 0
+    turns snapshots off (train.py:206-216)."""
+    return (int(tpu.get("ring_checkpoint_rows", 65536)),
+            int(tpu.get("ring_checkpoint_every", 500_000)))
 
 
 def _rms(r: RunningMeanStd):
@@ -101,6 +131,71 @@ def _bundle(trainer: Trainer, state):
         "curriculum": {f: getattr(cur, f) for f in
                        ("lam", "ring", "ptr", "filled", "sr_mean", "policy_iteration")},
     }
+
+
+def restore_learner(trainer: Trainer, state, bundle, frames):
+    """Put a checkpoint payload (`_bundle`) into a fresh trainer and loop
+    state: the learner (params, target params, optimizer moments and
+    counts, SAC's log_alpha), the normalizer moments and the curriculum,
+    and the loop's frame count `frames` (train.py:166-204). The per-env
+    running returns start at zero."""
+    trainer.algo.load_state_dict(bundle["algo_state"])
+    rms = lambda d: RunningMeanStd(mean=d["mean"], var=d["var"], count=d["count"])
+    dev = trainer.device
+    return state.replace(
+        curriculum=state.curriculum.replace(**{k: v.to(dev) for k, v in
+                                               bundle["curriculum"].items()}),
+        normalizer=state.normalizer.replace(obs_rms=rms(bundle["obs_rms"]),
+                                            ret_rms=rms(bundle["ret_rms"])),
+        global_step=int(frames))
+
+
+def restore_ring(trainer: Trainer, state, snap):
+    """Restore a ring snapshot into the loop state's fresh replay. Returns
+    the rows restored, or None when the snapshot's stride or observation
+    width differs from this run's: then the restore is skipped with a
+    warning (train.py:229-235; a capacity that differs is not guarded)."""
+    width = int(np.prod(trainer.env.obs_shape))
+    stride, got = int(snap["batch_stride"]), int(snap["obs"].shape[1])
+    if stride != trainer.num_envs or got != width:
+        log.warning("ring snapshot layout (stride %d, obs width %d) does not match this run "
+                    "(stride %d, obs width %d); skipping the restore", stride, got,
+                    trainer.num_envs, width)
+        return None
+    replay_mod.restore_snapshot(state.buffer, snap)
+    return int(snap["n"])
+
+
+def _cadence_start(frames, every, chunk):
+    """The frame count at which a cadence of `every` frames, checked after
+    each chunk of `chunk` frames from 0, last fired at or before `frames`."""
+    period = chunk * max(math.ceil(every / chunk), 1)
+    return frames - frames % period
+
+
+def _save_ring(ring_ckpt, frames, buf, rows):
+    t0 = time.perf_counter()
+    snap = replay_mod.snapshot(buf, rows)
+    ring_ckpt.save(frames, snap)
+    nbytes = sum(v.numel() * v.element_size() for v in snap.values()
+                 if isinstance(v, torch.Tensor))
+    info = dict(frames=frames, rows=int(snap["obs"].shape[0]), n=snap["n"], bytes=nbytes,
+                seconds=time.perf_counter() - t0)
+    log.info("saved the replay-ring snapshot: %s", info)
+    return info
+
+
+def _runs_log(model_dir, load_dir, record):
+    """Write <model_dir>/runs.jsonl: the lines of <load_dir>/runs.jsonl when
+    resuming, then `record`."""
+    lines = []
+    prev = os.path.join(load_dir, "runs.jsonl") if load_dir else None
+    if prev and os.path.exists(prev):
+        with open(prev) as f:
+            lines = [ln for ln in f.read().splitlines() if ln.strip()]
+    lines.append(json.dumps(record, sort_keys=True))
+    with open(os.path.join(model_dir, "runs.jsonl"), "w") as f:
+        f.write("\n".join(lines) + "\n")
 
 
 def train(args):
@@ -135,11 +230,34 @@ def train(args):
 
     t_start = time.perf_counter()
     trainer = Trainer(config, algo=algo, device=device, seed=args.seed)
-    note = ring_snapshot_note(tpu)
-    if note:
-        log.warning(note)
     state = trainer.init_state()
     frames_per_chunk = chunk_steps * trainer.num_envs
+
+    # resume: the newest checkpoint of --load_dir, then its ring snapshot,
+    # before demo seeding (the demo ring is not saved: seeding refills it at
+    # the restored curriculum lambda)
+    resume_frames, ring_restored, ring_restore_s = 0, None, None
+    if args.load_dir:
+        prev = cb.Checkpointer(args.load_dir)
+        resume_frames = int(prev.latest_step() or 0)
+        state = restore_learner(trainer, state, prev.restore(device=device), resume_frames)
+        log.info("resumed the learner from %s at %d frames (lambda %.3f)", args.load_dir,
+                 resume_frames, float(state.curriculum.lam))
+    ring_rows, ring_every = ring_settings(tpu)
+    ring_ckpt = cb.RingCheckpointer(model_dir) if ring_rows > 0 else None
+    if ring_ckpt is not None and args.load_dir:
+        same_dir = os.path.abspath(args.load_dir) == os.path.abspath(model_dir)
+        snap = (ring_ckpt if same_dir else cb.RingCheckpointer(args.load_dir)).restore_raw()
+        if snap is None:
+            log.info("no ring snapshot under %s; resuming with an empty replay ring",
+                     args.load_dir)
+        else:
+            t0 = time.perf_counter()
+            ring_restored = restore_ring(trainer, state, snap)
+            ring_restore_s = time.perf_counter() - t0
+            if ring_restored is not None:
+                log.info("restored %d replay frames from the ring snapshot in %.3f s",
+                         ring_restored, ring_restore_s)
 
     demo_frames = int(tpu.get("demo_frames", 0))
     if demo_frames > 0:
@@ -166,14 +284,18 @@ def train(args):
 
     demo_refresh_every = int(tpu.get("demo_refresh_every", 0))
     demo_refresh_frames = int(tpu.get("demo_refresh_frames", 0))
-    last_demo = 0
     stop_at_sr = tpu.get("stop_at_sr")
     stop_streak = 0
     solved = False
 
     log.info("training %s for %d frames (%d envs) on %s", algo, total_timesteps,
              trainer.num_envs, device)
-    frames = last_eval = last_ckpt = 0
+    frames = resume_frames
+    last_eval, last_ckpt, last_demo, last_ring = (
+        _cadence_start(frames, max(every, 1), frames_per_chunk)
+        for every in (eval_freq, checkpoint_freq, demo_refresh_every, ring_every))
+    saved_ckpt = False
+    ring_save = None
     drained = 0
     row, res = {}, {}
     term_requested = []
@@ -214,7 +336,7 @@ def train(args):
                     break
 
             qm = row.get("q_target_mean", math.nan)
-            if (q_band and math.isfinite(qm) and last_ckpt > 0
+            if (q_band and math.isfinite(qm) and saved_ckpt
                     and frames - last_rollback > checkpoint_freq
                     and not q_band[0] <= qm <= q_band[1]):
                 log.warning("TRIPWIRE: q_target_mean %.3f outside feasible band [%.3f, %.3f] "
@@ -233,7 +355,10 @@ def train(args):
 
             if frames - last_ckpt >= checkpoint_freq:
                 ckpt.save(frames, _bundle(trainer, state))
-                last_ckpt = frames
+                last_ckpt, saved_ckpt = frames, True
+            if ring_ckpt is not None and frames - last_ring >= ring_every:
+                ring_save = _save_ring(ring_ckpt, frames, state.buffer, ring_rows)
+                last_ring = frames
             if frames - last_eval >= eval_freq:
                 actor, norm = trainer.policy, state.normalizer
                 res = trainer.evaluate(actor, norm)
@@ -256,6 +381,8 @@ def train(args):
         signal.signal(signal.SIGTERM, prev_handler)
 
     ckpt.save(max(frames, 1), _bundle(trainer, state))
+    if ring_ckpt is not None and (ring_save is None or ring_save["frames"] != frames):
+        ring_save = _save_ring(ring_ckpt, max(frames, 1), state.buffer, ring_rows)
     monitor.close()
     scalars.close()
     eval_log.close()
@@ -267,8 +394,17 @@ def train(args):
         log.info("stopped: %d frames (target %d)", frames, total_timesteps)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t_start
+    _runs_log(model_dir, args.load_dir, dict(
+        command=" ".join(["python -m deep_rl_grasping_tpu_torch.training.train"]
+                         + [shlex.quote(a) for a in args.argv]),
+        seed=args.seed, device=str(device), card=card_info(device), load_dir=args.load_dir,
+        start_frames=resume_frames, frames=frames, done=done, wall_seconds=wall,
+        ring_rows_restored=ring_restored))
     cur, buf = state.curriculum, state.buffer
-    return dict(frames=frames, done=done, wall_seconds=time.perf_counter() - t_start,
+    return dict(frames=frames, done=done, wall_seconds=wall, resume_frames=resume_frames,
+                ring_rows_restored=ring_restored, ring_restore_seconds=ring_restore_s,
+                ring_save=ring_save,
                 curriculum_lambda=float(cur.lam), success_rate=float(cur.sr_mean),
                 episodes=int(state.ep_ring_n), metrics=row, eval=res,
                 updates=trainer.algo.step, phase_seconds=trainer.clock.totals(),
@@ -293,6 +429,15 @@ def _policy_for(config, device):
     if algo == "BDQ":
         return BDQ(obs_shape, 3 if spec.simplified else 5, config, device)
     raise SystemExit(f"the port evaluates {', '.join(ALGOS)} policies, not {algo}")
+
+
+def load_scenes(path, device):
+    """The env states stored under `scene.*` in an npz (such as the JAX
+    package's validation scenes in deep_rl_grasping_tpu_torch/data/), on
+    `device`."""
+    with np.load(path) as data:
+        arrays = {k[len("scene."):]: data[k] for k in data.files if k.startswith("scene.")}
+    return env_state_from_numpy(arrays, device)
 
 
 def load_bundle_actor(model_dir, device):
@@ -336,9 +481,15 @@ def run(args):
     else:
         config, actor, normalizer = load_checkpoint_actor(args.model, device, best=args.best)
     evaluator = Evaluator(config, device)
+    initial_states, n_episodes = None, args.episodes or 100
+    if args.scenes:
+        initial_states = load_scenes(args.scenes, device)
+        n_episodes = int(initial_states.episode_step.shape[0])
+        if args.episodes not in (None, n_episodes):
+            raise SystemExit(f"{args.scenes} holds {n_episodes} scenes, not {args.episodes}")
     t0 = time.perf_counter()
-    res = evaluator.evaluate(actor, normalizer, n_episodes=args.episodes,
-                             validate=not args.test, stochastic=args.stochastic)
+    res = evaluator.evaluate(actor, normalizer, n_episodes=n_episodes, validate=not args.test,
+                             stochastic=args.stochastic, initial_states=initial_states)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
@@ -358,6 +509,9 @@ def main(argv=None):
     tp.add_argument("--config", type=str, required=True)
     tp.add_argument("--algo", type=str, required=True)
     tp.add_argument("--model_dir", type=str, required=True)
+    tp.add_argument("--load_dir", type=str,
+                    help="resume from the newest checkpoint and ring snapshot of this "
+                         "directory (written by `train`; may equal --model_dir)")
     tp.add_argument("--timestep", type=str)
     tp.add_argument("--seed", type=int, default=0)
     tp.add_argument("-s", "--simple", action="store_true")
@@ -373,10 +527,14 @@ def main(argv=None):
                     help="evaluate the best-eval checkpoint instead of the latest")
     rp.add_argument("-t", "--test", action="store_true")
     rp.add_argument("-s", "--stochastic", action="store_true")
-    rp.add_argument("--episodes", type=int, default=100)
+    rp.add_argument("--episodes", type=int,
+                    help="episodes of the protocol (default 100; with --scenes, one per scene)")
+    rp.add_argument("--scenes", type=str,
+                    help="npz of env states under scene.* to start the episodes from")
     rp.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     rp.set_defaults(func=run)
     args = parser.parse_args(argv)
+    args.argv = list(sys.argv[1:] if argv is None else argv)
     return args.func(args)
 
 

@@ -73,13 +73,13 @@ def refuse_unported(tpu_cfg):
         raise ValueError(
             "tpu.sharded: true asks for the data-parallel trainer "
             "(deep_rl_grasping_tpu/parallel/train_dp.py), which the port does not have yet "
-            "(ROADMAP Queue 1 item 10, multi-GPU); set it to false to train on one device")
+            "(ROADMAP Queue 1 item 8, multi-GPU); set it to false to train on one device")
     scale = int(tpu_cfg.get("update_batch_scale", 1) or 1)
     if scale > 1:
         raise ValueError(
             f"tpu.update_batch_scale: {scale} folds that many updates into one larger batch "
             "(deep_rl_grasping_tpu/training/trainer.py:237-259), which the port does not do "
-            "yet (ROADMAP Queue 1 item 9); set it to 1")
+            "yet (ROADMAP Queue 1 item 6); set it to 1")
 
 
 def set_action_interface(env: GraspEnv, algo_name, config):
@@ -109,7 +109,7 @@ def make_algo(config, env: GraspEnv, algo_name, device):
         set_action_interface(env, algo_name, config)
         return BDQ(env.obs_shape, 3 if env.simplified else 5, config, device)
     raise NotImplementedError(f"the port trains {', '.join(ALGOS)}; not {algo_name} "
-                              "(ROADMAP Queue 1 item 8)")
+                              "(ROADMAP Queue 1 items 4-5)")
 
 
 def act(policy, obs, gen, deterministic=False, frames=None):

@@ -1,4 +1,4 @@
-"""Carry JAX-trained policy weights into the port.
+"""Carry policy weights between the JAX package's bundles and the port.
 
 Reads the committed `trained/*/policy.npz` bundles (written by the JAX
 package's utils/policy_io.py, arrays keyed by Flax key path such as
@@ -26,6 +26,12 @@ carries a whole Flax `SACState` (actor, critic, target critic, log_alpha)
 into the port's SAC and `load_q_state` a `DQNState` / `BDQState` (params,
 target params) into the port's DQN / BDQ, which is how the tests hand them
 freshly initialised Flax params.
+
+`save_policy` writes the other way (utils/policy_io.py:34-47 of the JAX
+package): a port-trained network and its normalizer moments as a
+`policy.npz` under the JAX key paths, with the `__meta__` JSON, which the
+JAX package's `train.py run --npz` reads. One `layout` table per network
+drives both directions.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from deep_rl_grasping_tpu_torch.models.networks import (
 )
 
 _KEY = re.compile(r"\['([^']+)'\]")
+FORMAT_VERSION = 1
 
 
 def _nest(flat: dict) -> dict:
@@ -58,88 +65,124 @@ def _nest(flat: dict) -> dict:
     return out
 
 
-def _dense(tree, prefix, out):
-    out[prefix + "weight"] = np.asarray(tree["kernel"], np.float32).T
-    out[prefix + "bias"] = np.asarray(tree["bias"], np.float32)
+def _mlp(mlp, flax, prefix):
+    return [(flax + (f"Dense_{i}",), f"{prefix}layers.{i}.", "dense")
+            for i in range(len(mlp.layers))]
 
 
-def _mlp(tree, prefix, out):
-    i = 0
-    while f"Dense_{i}" in tree:
-        _dense(tree[f"Dense_{i}"], f"{prefix}layers.{i}.", out)
-        i += 1
-
-
-def _torso(params, torso, prefix, out):
-    """Flax torso params -> `prefix` entries of a torch state_dict; returns
-    the index of the first Flax `MLP_<i>` after the torso."""
+def _torso(torso, prefix):
+    """Layout of a torso (the augmented Nature CNN or an MLP) and the index
+    of the first Flax `MLP_<i>` after it."""
     if not hasattr(torso, "cnn"):
-        _mlp(params["MLP_0"], prefix, out)
-        return 1
-    cnn = params["AugmentedNatureCNN_0"]["NatureCNN_0"]
-    for i in range(len(torso.cnn.convs)):
-        k = np.asarray(cnn[f"Conv_{i}"]["kernel"], np.float32)  # HWIO
-        out[f"{prefix}cnn.convs.{i}.weight"] = k.transpose(3, 2, 0, 1)
-        out[f"{prefix}cnn.convs.{i}.bias"] = np.asarray(cnn[f"Conv_{i}"]["bias"], np.float32)
-    c, h, w = torso.cnn.out_chw
-    k = np.asarray(cnn["Dense_0"]["kernel"], np.float32)  # (h*w*c, F), NHWC rows
-    k = k.reshape(h, w, c, -1).transpose(2, 0, 1, 3).reshape(c * h * w, -1)
-    out[f"{prefix}cnn.dense.weight"] = k.T
-    out[f"{prefix}cnn.dense.bias"] = np.asarray(cnn["Dense_0"]["bias"], np.float32)
-    return 0
+        return _mlp(torso, ("MLP_0",), prefix), 1
+    cnn = ("AugmentedNatureCNN_0", "NatureCNN_0")
+    out = [(cnn + (f"Conv_{i}",), f"{prefix}cnn.convs.{i}.", "conv")
+           for i in range(len(torso.cnn.convs))]
+    out.append((cnn + ("Dense_0",), f"{prefix}cnn.dense.", ("flat_dense", torso.cnn.out_chw)))
+    return out, 0
 
 
-def _tensors(out):
+def layout(module):
+    """Where each layer of a `SACActor`, `SACCritic`, `QNetwork` or
+    `BDQNetwork` sits in the Flax param tree: (Flax path, torch prefix,
+    kind) per layer, in the creation order described above."""
+    if isinstance(module, SACActor):
+        out, i = _torso(module.torso, "torso.")
+        if module.mlp is not None:
+            out += _mlp(module.mlp, (f"MLP_{i}",), "mlp.")
+        return out + [(("Dense_0",), "mean.", "dense"), (("Dense_1",), "log_std.", "dense")]
+    if isinstance(module, SACCritic):
+        out, i = _torso(module.torso, "torso.")
+        for q in range(2):
+            out += _mlp(module.mlps[q], (f"MLP_{i + q}",), f"mlps.{q}.")
+            out.append(((f"Dense_{q}",), f"heads.{q}.", "dense"))
+        return out
+    if isinstance(module, BDQNetwork):
+        out = _torso(module.cnn, "cnn.")[0] if module.cnn is not None else []
+        out += _mlp(module.trunk, ("MLP_0",), "trunk.")
+        out += _mlp(module.value_mlp, ("MLP_1",), "value_mlp.")
+        out.append((("Dense_0",), "value.", "dense"))
+        for d in range(len(module.branches)):
+            out += _mlp(module.branch_mlps[d], (f"MLP_{2 + d}",), f"branch_mlps.{d}.")
+            out.append(((f"Dense_{1 + d}",), f"branches.{d}.", "dense"))
+        return out
+    if isinstance(module, QNetwork):
+        out, i = _torso(module.torso, "torso.")
+        if module.mlp is not None:
+            out += _mlp(module.mlp, (f"MLP_{i}",), "mlp.")
+        heads = ("adv", "adv_hidden") + (("val", "val_hidden") if module.dueling else ())
+        return out + [((f"Dense_{j}",), f"{name}.", "dense") for j, name in enumerate(heads)]
+    raise TypeError(f"no Flax layout for {type(module).__name__}")
+
+
+def _to_torch(kernel, kind):
+    k = np.asarray(kernel, np.float32)
+    if kind == "dense":
+        return k.T
+    if kind == "conv":  # HWIO -> OIHW
+        return k.transpose(3, 2, 0, 1)
+    c, h, w = kind[1]  # rows in NHWC flatten order -> NCHW
+    return k.reshape(h, w, c, -1).transpose(2, 0, 1, 3).reshape(c * h * w, -1).T
+
+
+def _to_flax(weight, kind):
+    w = np.asarray(weight, np.float32)
+    if kind == "dense":
+        return w.T
+    if kind == "conv":  # OIHW -> HWIO
+        return w.transpose(2, 3, 1, 0)
+    c, h, w_ = kind[1]
+    return w.T.reshape(c, h, w_, -1).transpose(1, 2, 0, 3).reshape(h * w_ * c, -1)
+
+
+def _state_dict(params: dict, module) -> dict:
+    out = {}
+    for path, prefix, kind in layout(module):
+        node = params
+        for p in path:
+            if not isinstance(node, dict) or p not in node:
+                raise ValueError(f"the params hold no {'/'.join(path)} for "
+                                 f"{type(module).__name__}.{prefix[:-1]}")
+            node = node[p]
+        out[prefix + "weight"] = _to_torch(node["kernel"], kind)
+        out[prefix + "bias"] = np.asarray(node["bias"], np.float32)
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+
+
+def flax_params(state_dict, module) -> dict:
+    """The inverse of the maps below: a torch state_dict of `module` ->
+    Flax params (nested dict of float32 numpy arrays: Dense kernels
+    (in, out), Conv kernels HWIO, the 512-wide layer's rows in NHWC
+    flatten order)."""
+    params: dict = {}
+    for path, prefix, kind in layout(module):
+        node = params
+        for p in path:
+            node = node.setdefault(p, {})
+        node["kernel"] = _to_flax(state_dict[prefix + "weight"].detach().cpu(), kind)
+        node["bias"] = np.asarray(state_dict[prefix + "bias"].detach().cpu(), np.float32)
+    return params
 
 
 def actor_state_dict(params: dict, actor: SACActor) -> dict:
     """Flax SACActor params (nested dict of arrays) -> torch state_dict."""
-    out = {}
-    i = _torso(params, actor.torso, "torso.", out)
-    if actor.mlp is not None:
-        _mlp(params[f"MLP_{i}"], "mlp.", out)
-    _dense(params["Dense_0"], "mean.", out)
-    _dense(params["Dense_1"], "log_std.", out)
-    return _tensors(out)
+    return _state_dict(params, actor)
 
 
 def critic_state_dict(params: dict, critic: SACCritic) -> dict:
     """Flax SACCritic params (nested dict of arrays) -> torch state_dict:
     the torso, then per Q head the Flax MLP_<i> and Dense_<j> in creation
     order (networks.py:112-126)."""
-    out = {}
-    i = _torso(params, critic.torso, "torso.", out)
-    for q in range(2):
-        _mlp(params[f"MLP_{i + q}"], f"mlps.{q}.", out)
-        _dense(params[f"Dense_{q}"], f"heads.{q}.", out)
-    return _tensors(out)
+    return _state_dict(params, critic)
 
 
 def q_state_dict(params: dict, net) -> dict:
     """Flax QNetwork or BDQNetwork params (nested dict of arrays) -> torch
     state_dict of the port's `QNetwork` or `BDQNetwork`, by the creation
     order described above."""
-    out = {}
-    if isinstance(net, BDQNetwork):
-        if net.cnn is not None:
-            _torso(params, net.cnn, "cnn.", out)
-        _mlp(params["MLP_0"], "trunk.", out)
-        _mlp(params["MLP_1"], "value_mlp.", out)
-        _dense(params["Dense_0"], "value.", out)
-        for d in range(len(net.branches)):
-            _mlp(params[f"MLP_{2 + d}"], f"branch_mlps.{d}.", out)
-            _dense(params[f"Dense_{1 + d}"], f"branches.{d}.", out)
-        return _tensors(out)
-    if not isinstance(net, QNetwork):
+    if not isinstance(net, (QNetwork, BDQNetwork)):
         raise TypeError(f"not a Q network: {type(net).__name__}")
-    i = _torso(params, net.torso, "torso.", out)
-    if net.mlp is not None:
-        _mlp(params[f"MLP_{i}"], "mlp.", out)
-    heads = ("adv", "adv_hidden") + (("val", "val_hidden") if net.dueling else ())
-    for j, name in enumerate(heads):
-        _dense(params[f"Dense_{j}"], f"{name}.", out)
-    return _tensors(out)
+    return _state_dict(params, net)
 
 
 def _n_arrays(tree) -> int:
@@ -149,10 +192,7 @@ def _n_arrays(tree) -> int:
 def _policy_state_dict(params: dict, module) -> dict:
     """Flax policy params -> `module`'s state_dict; refuses params with an
     array the module has no place for."""
-    if isinstance(module, SACActor):
-        sd = actor_state_dict(params, module)
-    else:
-        sd = q_state_dict(params, module)
+    sd = _state_dict(params, module)
     if len(sd) != _n_arrays(params):
         raise ValueError(f"the bundle holds {_n_arrays(params)} policy arrays, "
                          f"{type(module).__name__} takes {len(sd)}")
@@ -243,3 +283,34 @@ def load_policy(npz_dir, actor, device="cpu"):
     norm = NormalizerState(obs_rms=rms(obs_rms, actor.obs_shape), ret_rms=rms(ret_rms, ()),
                            returns=torch.zeros(0, device=device))
     return actor, norm, meta
+
+
+def _flat_keys(prefix, tree):
+    """Flax key paths as jax.tree_util.keystr writes them for nested dicts."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}['{k}']"
+        out.update(_flat_keys(key, v) if isinstance(v, dict) else {key: v})
+    return out
+
+
+def save_policy(out_dir, net, obs_rms, ret_rms, meta=None):
+    """Write <out_dir>/policy.npz for `net` (a SACActor, QNetwork or
+    BDQNetwork) and the normalizer moments `obs_rms`, `ret_rms`
+    (RunningMeanStd or dicts of mean, var, count), in the JAX package's
+    layout: `policy[...]` arrays by Flax key path, `obs_rms.mean` and the
+    like, and `__meta__` (sorted-key JSON of `meta` with the bundle's
+    `algo`, `params_field` and `format_version` 1). Returns the path."""
+    algo, field = BUNDLE_KINDS[type(net)]
+    arrays = _flat_keys("policy", flax_params(net.state_dict(), net))
+    for name, rms in (("obs_rms", obs_rms), ("ret_rms", ret_rms)):
+        for k in ("mean", "var", "count"):
+            v = rms[k] if isinstance(rms, dict) else getattr(rms, k)
+            arrays[f"{name}.{k}"] = np.asarray(torch.as_tensor(v).detach().cpu(), np.float32)
+    meta = dict(meta or {}, algo=algo, params_field=field, format_version=FORMAT_VERSION)
+    arrays["__meta__"] = np.frombuffer(json.dumps(meta, sort_keys=True).encode(),
+                                       dtype=np.uint8).copy()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "policy.npz")
+    np.savez_compressed(path, **arrays)
+    return path

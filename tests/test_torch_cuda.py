@@ -264,3 +264,32 @@ def test_library_is_built_once(dev):
     assert sorted(lib.paths) == ["raster.cu", "solver.cu"]
     assert all(os.path.isfile(p) for p in lib.paths.values())
     assert np.isfinite(lib.build_seconds)
+
+
+@pytest.mark.parametrize("algo", ["SAC", "BDQ"])
+def test_restored_adam_counts_stay_on_the_cpu(dev, algo, tmp_path):
+    """A learner restored from a checkpoint loaded onto the card keeps its
+    Adam step counts on the CPU, as a fresh Adam does: a count on the card
+    would cost a host sync per parameter and update."""
+    from deep_rl_grasping_tpu_torch.algos.bdq import BDQ
+    from deep_rl_grasping_tpu_torch.algos.sac import SAC
+
+    cfg = {"SAC": {"layers": [16, 16]}, "BDQ": {"layers": [[16], [8], [8]]}}
+    make = (lambda: SAC((20,), 5, cfg, dev)) if algo == "SAC" else (lambda: BDQ((20,), 3, cfg, dev))
+    learner = make()
+    opts = ((learner.actor_opt, learner.critic_opt, learner.alpha_opt) if algo == "SAC"
+            else (learner.opt,))
+    for opt in opts:  # one step each, so that every Adam has state
+        for group in opt.param_groups:
+            for p in group["params"]:
+                p.grad = torch.ones_like(p)
+        opt.step()
+    torch.save(learner.state_dict(), tmp_path / "ckpt.pt")
+    payload = torch.load(tmp_path / "ckpt.pt", map_location=dev, weights_only=True)
+    restored = make()
+    restored.load_state_dict(payload)
+    opts = ((restored.actor_opt, restored.critic_opt, restored.alpha_opt) if algo == "SAC"
+            else (restored.opt,))
+    steps = [s["step"] for opt in opts for s in opt.state.values()]
+    assert steps and all(t.device.type == "cpu" and float(t) == 1.0 for t in steps)
+    assert all(s["exp_avg"].device.type == "cuda" for opt in opts for s in opt.state.values())

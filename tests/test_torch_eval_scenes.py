@@ -51,6 +51,15 @@ Rebuild the files (JAX on the CPU, a few minutes each):
     JAX_PLATFORMS=cpu python tests/test_torch_eval_scenes.py --rebuild \
         trained/bdq_simplified_r5
 
+`--episodes N` builds the N scenes of an N-episode protocol instead (the
+JAX package's `run --episodes N` draws them in one batch), into
+`<file>_<N>.npz`, for example the 500 of
+`deep_rl_grasping_tpu_torch/data/simplified_r5_val_scenes_500.npz`, whose
+first 100 scenes are those of the 100-scene file:
+
+    JAX_PLATFORMS=cpu python tests/test_torch_eval_scenes.py --rebuild \
+        trained/bdq_simplified_r5 --episodes 500
+
 Another bundle whose config differs in no scene, curriculum, camera or
 simulation key starts from the same scenes; check that it does (about a
 minute; exit code 0 when every array is equal):
@@ -106,10 +115,16 @@ def _flat(s):
     return out
 
 
-def jax_val_scenes(bundle):
+def scene_file(bundle, n_episodes=N_EPISODES):
+    """The npz of a bundle's JAX validation scenes for an n-episode protocol."""
+    path = SCENE_FILES[bundle]
+    return path if n_episodes == N_EPISODES else path[:-len(".npz")] + f"_{n_episodes}.npz"
+
+
+def jax_val_scenes(bundle, n_episodes=N_EPISODES):
     """The JAX package's eval env of a bundle's config (with its trained
     encoder, and for BDQ its action interface, as the JAX trainer builds
-    them) and the 100 states its protocol evaluation starts from."""
+    them) and the `n_episodes` states its protocol evaluation starts from."""
     import dataclasses
 
     import jax
@@ -125,7 +140,7 @@ def jax_val_scenes(bundle):
         je.branched_actions = True
         je.actuator_spec = dataclasses.replace(
             je.actuator_spec, num_actions_pad=int(cfg["BDQ"]["num_actions_pad"]))
-    jb = jenv.BatchedGraspEnv(je, N_EPISODES, use_pallas=False)
+    jb = jenv.BatchedGraspEnv(je, n_episodes, use_pallas=False)
     cur = jb.init_curriculum()
     cur = cur.replace(lam=jnp.asarray(1.0, jnp.float32))
     states, _ = jax.jit(jb.reset)(jax.random.PRNGKey(1), cur)
@@ -142,7 +157,7 @@ def same_scenes(bundle, path):
                   or not np.array_equal(data["scene." + k], got[k]))
 
 
-def build_scenes(bundle=BUNDLE):
+def build_scenes(bundle=BUNDLE, n_episodes=N_EPISODES):
     """Build a bundle's npz with the JAX package (run by hand, see the
     docstring)."""
     import jax
@@ -152,8 +167,8 @@ def build_scenes(bundle=BUNDLE):
     from deep_rl_grasping_tpu_torch.training.trainer import act
     from tests.test_torch_env import _pallas_obs
 
-    path = SCENE_FILES[bundle]
-    cfg, je, states = jax_val_scenes(bundle)
+    path = scene_file(bundle, n_episodes)
+    cfg, je, states = jax_val_scenes(bundle, n_episodes)
 
     first = jax.tree.map(lambda x: x[:N_CHECK], states)
     obs = _pallas_obs(je, first)
@@ -368,19 +383,25 @@ def test_simplified_one_control_step_matches_jax(simp_scenes):
 
 if __name__ == "__main__":
     usage = ("usage: JAX_PLATFORMS=cpu python tests/test_torch_eval_scenes.py "
-             "--rebuild | --compare <bundle dir>")
-    if len(sys.argv) < 2 or sys.argv[1] not in ("--rebuild", "--compare"):
+             "--rebuild [<bundle dir>] [--episodes N] | --compare <bundle dir>")
+    argv = sys.argv[1:]
+    n_episodes = N_EPISODES
+    if "--episodes" in argv:
+        i = argv.index("--episodes")
+        n_episodes = int(argv[i + 1])
+        del argv[i:i + 2]
+    if not argv or argv[0] not in ("--rebuild", "--compare"):
         raise SystemExit(usage)
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    if sys.argv[1] == "--rebuild":
-        print("wrote", build_scenes(os.path.abspath(sys.argv[2]) if len(sys.argv) > 2
-                                    else BUNDLE))
+    if argv[0] == "--rebuild":
+        print("wrote", build_scenes(os.path.abspath(argv[1]) if len(argv) > 1 else BUNDLE,
+                                    n_episodes))
     else:
-        cfg = io_utils.load_yaml(os.path.join(sys.argv[2], "config.yaml"))
+        cfg = io_utils.load_yaml(os.path.join(argv[1], "config.yaml"))
         path = SCENES_SIMP_VAL if cfg.get("simplified") else SCENES_R5C_VAL
-        differ = same_scenes(sys.argv[2], path)
-        print(f"{sys.argv[2]}: validation scenes", "differ in " + ", ".join(differ) if differ
+        differ = same_scenes(argv[1], path)
+        print(f"{argv[1]}: validation scenes", "differ in " + ", ".join(differ) if differ
               else f"equal to {os.path.relpath(path, REPO)}")
         sys.exit(1 if differ else 0)

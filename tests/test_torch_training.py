@@ -157,8 +157,8 @@ def _flagship_config(**tpu):
     return cfg
 
 
-@pytest.mark.parametrize("tpu,item", [(dict(sharded=True), "item 10"),
-                                      (dict(update_batch_scale=2), "item 9")],
+@pytest.mark.parametrize("tpu,item", [(dict(sharded=True), "item 8"),
+                                      (dict(update_batch_scale=2), "item 6")],
                          ids=["sharded", "update_batch_scale"])
 def test_trainer_refuses_what_the_port_cannot_honour(tpu, item):
     """A config the port would otherwise run differently from what it asks
@@ -171,14 +171,14 @@ def test_trainer_refuses_what_the_port_cannot_honour(tpu, item):
 
 def test_trainer_builds_the_flagship_config():
     """The shipped flagship config (sharded false, no batch scale) still
-    builds, at full width; and `train` says that ring snapshots are off,
-    unless the config turns them off as well."""
+    builds, at full width; and it turns replay-ring snapshots on with the
+    JAX trainer's defaults (the newest 65536 rows every 500,000 frames),
+    unless the config sets the rows to 0."""
     from deep_rl_grasping_tpu_torch.training.trainer import Trainer
 
     cfg = _flagship_config(update_batch_scale=1, sharded=False)
     trainer = Trainer(cfg, device="cpu")
     assert trainer.num_envs == 128 and trainer.updates_per_step == 128
     assert trainer.batch_size == 256
-    note = train.ring_snapshot_note(cfg["tpu"])
-    assert note.startswith("replay-ring snapshots are off") and "Queue 1 item 3" in note
-    assert train.ring_snapshot_note(dict(cfg["tpu"], ring_checkpoint_rows=0)) is None
+    assert train.ring_settings(cfg["tpu"]) == (65536, 500_000)
+    assert train.ring_settings(dict(cfg["tpu"], ring_checkpoint_rows=0))[0] == 0
