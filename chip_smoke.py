@@ -63,7 +63,22 @@ just before and read just after:
   writes a bundle of its checkpoint, and `run --npz` of the bundle and
   `run --model` of the checkpoint, both from the JAX package's validation
   scenes, must give the same success rate and the same first-step greedy
-  actions (`export`, `run_npz_vs_model`).
+  actions (`export`, `run_npz_vs_model`);
+* the continuous simplified task with DDPG, PPO and TRPO: `train` on
+  configs/ddpg_simplified.yaml at full width (128 envs, 64 uniform updates
+  of batch 64 per iteration, the 500k ring, demo seeding), cut as
+  TRAIN_CUTS cuts the other replay runs, and on configs/ppo_simplified.yaml
+  and trpo_simplified.yaml at full width (128 envs x 64 steps = 8192
+  frames per policy iteration, [256, 256] towers), cut to two policy
+  iterations (ONPOLICY_CUTS); `run --model` on each checkpoint
+  (`train_ddpg`, `run_model_ddpg`, `train_ppo`, `run_model_ppo`,
+  `train_trpo`, `run_model_trpo`); the PPO checkpoint is exported and
+  `run --npz` of the bundle held to `run --model` as in the resume phase
+  (`export_ppo`, `run_npz_vs_model_ppo`). Each training line gives
+  frames/s, ms per control step of the env (the on-policy rollout's),
+  ms per update (a PPO minibatch step, or TRPO's whole update: gradient,
+  conjugate gradient, line search, value fit) and per iteration's
+  updates, peak GiB and the launches.
 
 Each phase prints one JSON line with its elapsed seconds. The last three
 lines are the card's name and power limit (nvidia-smi), one JSON object
@@ -123,6 +138,22 @@ JAX_VAL = {BUNDLE: 0.86, ENCODER_BUNDLE: 0.42, BDQ_BUNDLE: 0.68, DQN_BUNDLE: 0.6
 TRAIN_CUTS = {("ALGO", "total_timesteps"): 2048, ("tpu", "demo_frames"): 2048,
               ("ALGO", "learning_starts"): 2048, ("tpu", "eval_freq"): 1024,
               ("tpu", "checkpoint_freq"): 1024, ("tpu", "demo_refresh_every"): 1024}
+# PPO and TRPO: one policy iteration is n_steps x num_envs = 8192 frames
+# on their configs, so the runs are cut to two iterations (an eval, a
+# checkpoint and save_best after each); nothing else is cut.
+ON_POLICY = ("PPO", "TRPO")
+ONPOLICY_CUTS = {("ALGO", "total_timesteps"): 16384, ("tpu", "eval_freq"): 8192,
+                 ("tpu", "checkpoint_freq"): 8192}
+DDPG_TRAIN_CONFIG = os.path.join("configs", "ddpg_simplified.yaml")
+PPO_TRAIN_CONFIG = os.path.join("configs", "ppo_simplified.yaml")
+TRPO_TRAIN_CONFIG = os.path.join("configs", "trpo_simplified.yaml")
+# the losses each learner's training run must log as finite numbers
+LOSS_KEYS = {"SAC": ("critic_loss", "actor_loss", "bc_loss", "alpha_loss", "q_target_mean",
+                     "entropy"),
+             "DQN": ("loss", "td_abs"), "BDQ": ("loss", "td_abs"),
+             "DDPG": ("critic_loss", "actor_loss"),
+             "PPO": ("loss", "pg_loss", "vf_loss", "entropy"),
+             "TRPO": ("surrogate", "kl", "vf_loss", "line_search_ok")}
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -652,13 +683,13 @@ def same_scene_evals(bundle, scenes):
 
 def train_and_run(phase, config_path, raster_key, run_phase, algo="SAC", root=None):
     """`train --algo algo` on `config_path` at full width with only
-    TRAIN_CUTS cut, into a temporary directory (or `root`, which keeps the
-    config as config.yaml and the run as run/), launches counted from just
-    before to just after; then `run --model` on its checkpoint. Logs
-    `<phase>_start`, `<phase>` and `run_phase`; raises unless the solver
-    and the raster launch `raster_key` were launched, every update ran and
-    (with prioritized replay) priorities changed. Returns the launch
-    counts."""
+    TRAIN_CUTS (ONPOLICY_CUTS for PPO and TRPO) cut, into a temporary
+    directory (or `root`, which keeps the config as config.yaml and the run
+    as run/), launches counted from just before to just after; then `run
+    --model` on its checkpoint. Logs `<phase>_start`, `<phase>` and
+    `run_phase`; raises unless the solver and the raster launch
+    `raster_key` were launched, every update ran and (with prioritized
+    replay) priorities changed. Returns the launch counts."""
     import numpy as np
     import torch
 
@@ -669,29 +700,42 @@ def train_and_run(phase, config_path, raster_key, run_phase, algo="SAC", root=No
 
     cfg = cfg_util.load_config(config_path)
     tpu, algo_cfg = cfg["tpu"], cfg[algo]
-    # the demo ring keeps the capacity the uncut config gives it
-    tpu.setdefault("demo_capacity", tpu["demo_frames"])
-    cuts = {(algo if block == "ALGO" else block, key): v for (block, key), v in TRAIN_CUTS.items()}
+    on_policy = algo in ON_POLICY
+    if not on_policy:  # the demo ring keeps the capacity the uncut config gives it
+        tpu.setdefault("demo_capacity", tpu["demo_frames"])
+    cuts = {(algo if block == "ALGO" else block, key): v for (block, key), v in
+            (ONPOLICY_CUTS if on_policy else TRAIN_CUTS).items()}
     for (block, key), value in cuts.items():
         cfg[block][key] = value
     prioritized = bool(algo_cfg.get("prioritized_replay", False)) and algo != "SAC"
-    loss_keys = (("critic_loss", "actor_loss", "bc_loss", "alpha_loss", "q_target_mean",
-                  "entropy") if algo == "SAC" else ("loss", "td_abs"))
+    loss_keys = LOSS_KEYS[algo]
+    if on_policy:
+        n_steps = int(algo_cfg["n_steps"])
+        updates_per_iter = (int(algo_cfg["n_epochs"]) * int(algo_cfg["n_minibatches"])
+                            if algo == "PPO" else 1)
+        shape = dict(n_steps=n_steps, frames_per_iteration=n_steps * tpu["num_envs"],
+                     updates_per_iteration=updates_per_iter,
+                     **{k: algo_cfg[k] for k in ("n_epochs", "n_minibatches", "clip_range",
+                                                 "cg_iters", "max_kl", "vf_iters")
+                        if k in algo_cfg})
+    else:
+        updates_per_iter = tpu["updates_per_step"]
+        shape = dict(updates_per_step=updates_per_iter, batch_size=algo_cfg["batch_size"],
+                     demo_fraction=tpu.get("demo_fraction", 0),
+                     buffer_size=algo_cfg["buffer_size"], demo_capacity=tpu["demo_capacity"])
+        if algo in ("DQN", "BDQ"):
+            shape.update(prioritized_replay=prioritized,
+                         exploration_frames=algo_cfg["exploration_fraction"]
+                         * algo_cfg["total_timesteps"],
+                         exploration_final_eps=algo_cfg["exploration_final_eps"])
     with (contextlib.nullcontext(root) if root else
           tempfile.TemporaryDirectory(prefix="chip_smoke_train_")) as tmp:
         cfg_path = os.path.join(tmp, "config.yaml")
         io_utils.save_yaml(cfg, cfg_path)
         model_dir = os.path.join(tmp, "run")
-        extra = {} if algo == "SAC" else {
-            "prioritized_replay": prioritized,
-            "exploration_frames": algo_cfg["exploration_fraction"] * algo_cfg["total_timesteps"],
-            "exploration_final_eps": algo_cfg["exploration_final_eps"]}
         log(f"{phase}_start", config=config_path, algo=algo,
             cuts={f"{b}.{k}": v for (b, k), v in cuts.items()},
-            num_envs=tpu["num_envs"], updates_per_step=tpu["updates_per_step"],
-            batch_size=algo_cfg["batch_size"], demo_fraction=tpu.get("demo_fraction", 0),
-            buffer_size=algo_cfg["buffer_size"], demo_capacity=tpu["demo_capacity"],
-            layers=algo_cfg["layers"], **extra)
+            num_envs=tpu["num_envs"], layers=algo_cfg["layers"], **shape)
         torch.cuda.reset_peak_memory_stats()
         reset_counts(solver_cuda, raster_cuda)
         tr = train.main(["train", "--config", cfg_path, "--algo", algo, "--model_dir",
@@ -702,12 +746,14 @@ def train_and_run(phase, config_path, raster_key, run_phase, algo="SAC", root=No
             tr["phase_seconds"]["update"]
         n_updates = tr["updates"]
         losses = {k: tr["metrics"].get(k) for k in loss_keys}
+        frames_per_iter = shape["frames_per_iteration"] if on_policy else tpu["num_envs"]
+        steps_per_iter = frames_per_iter // tpu["num_envs"]
         log(phase, algo=algo, frames=tr["frames"], done=tr["done"],
             wall_seconds=tr["wall_seconds"], iterations=n_iter, updates=n_updates,
-            env_frames_per_s_of_the_step=tpu["num_envs"] / (env_s / n_iter),
-            iteration_frames_per_s=n_iter * tpu["num_envs"] / (env_s + upd_s),
+            env_frames_per_s_of_the_step=frames_per_iter / (env_s / n_iter),
+            iteration_frames_per_s=n_iter * frames_per_iter / (env_s + upd_s),
             end_to_end_frames_per_s=tr["frames"] / tr["wall_seconds"],
-            ms_per_env_step=env_s / n_iter * 1e3,
+            ms_per_env_step=env_s / (n_iter * steps_per_iter) * 1e3,
             ms_per_update=upd_s / max(n_updates, 1) * 1e3,
             ms_updates_per_iteration=upd_s / max(n_upd_iter, 1) * 1e3,
             curriculum_lambda=tr["curriculum_lambda"], success_rate=tr["success_rate"],
@@ -716,7 +762,7 @@ def train_and_run(phase, config_path, raster_key, run_phase, algo="SAC", root=No
             max_memory_allocated_gib=peak_gib, launches=launches,
             checkpoint_step=tr["checkpoint_step"])
         if (not tr["done"] or tr["frames"] != cuts[(algo, "total_timesteps")]
-                or n_updates != n_iter * tpu["updates_per_step"]
+                or n_updates != n_iter * updates_per_iter
                 or not all(v is not None and np.isfinite(v) for v in losses.values())):
             raise RuntimeError(f"training run ({phase}) is malformed: {tr}")
         if prioritized and not tr["rows_off_priority_1"]:
@@ -733,6 +779,53 @@ def train_and_run(phase, config_path, raster_key, run_phase, algo="SAC", root=No
         if ev["episodes"] != EPISODES or not np.isfinite(ev["mean_return"]):
             raise RuntimeError(f"run --model result ({run_phase}) is malformed: {ev}")
     return dict(launches, replay_rows=tr["replay_rows"], frames=tr["frames"])
+
+
+def export_and_compare(run, out, dev, phase_suffix=""):
+    """`tools/export_policy` of the latest checkpoint of `run` into `out`,
+    then `run --npz` of the bundle against `run --model` of the
+    checkpoint, both from the JAX package's validation scenes: the same
+    success rate, return and length, and the same first-step actions of
+    the policy's mode (on the normalized observation where the config
+    normalizes). Logs `export<suffix>` and `run_npz_vs_model<suffix>`;
+    raises on a difference."""
+    import torch
+
+    from deep_rl_grasping_tpu_torch.algos.normalize import normalize_obs
+    from deep_rl_grasping_tpu_torch.envs.grasp_env import BatchedGraspEnv, GraspEnv
+    from deep_rl_grasping_tpu_torch.tools import export_policy
+    from deep_rl_grasping_tpu_torch.training import train, trainer
+
+    info = export_policy.main([run, "--out", out, "--latest"])
+    log("export" + phase_suffix, bundle_bytes=os.path.getsize(info["path"]),
+        source=info["source"], algo=info["algo"], checkpoint_step=info["checkpoint_step"],
+        files=sorted(os.listdir(out)))
+    res_npz = train.main(["run", "--npz", out, "--scenes", SIMP_SCENES])
+    res_model = train.main(["run", "--model", run, "--scenes", SIMP_SCENES])
+    config, pol_npz, norm_npz = train.load_bundle_actor(out, dev)
+    _, pol_model, norm_model = train.load_checkpoint_actor(run, dev)
+    algo = info["algo"]
+    env = GraspEnv(config, evaluate=True, validate=True, device=dev,
+                   encoder=trainer._maybe_load_encoder(config, dev))
+    trainer.set_action_interface(env, algo, config)
+    states = train.load_scenes(SIMP_SCENES, dev)
+    obs = BatchedGraspEnv(env, EPISODES, torch.Generator(device=dev)).observe_batch(states)
+
+    def first_actions(policy, norm):
+        o = normalize_obs(norm, obs) if config.get("normalize") else obs
+        return trainer.act(policy, o, None, deterministic=True)
+
+    a_npz, a_model = first_actions(pol_npz, norm_npz), first_actions(pol_model, norm_model)
+    actions_equal = torch.equal(a_npz, a_model)
+    log("run_npz_vs_model" + phase_suffix, algo=algo, scenes=SIMP_SCENES,
+        success_rate_npz=res_npz["success_rate"], success_rate_model=res_model["success_rate"],
+        mean_return_npz=res_npz["mean_return"], mean_return_model=res_model["mean_return"],
+        episodes=res_npz["episodes"], first_step_actions_equal=actions_equal,
+        first_step_actions_distinct=int(torch.unique(a_npz, dim=0).shape[0]))
+    if not actions_equal or any(res_npz[k] != res_model[k] for k in
+                                ("success_rate", "mean_return", "mean_length", "episodes")):
+        raise RuntimeError(f"run --npz of the export ({res_npz}) differs from run --model "
+                           f"of the checkpoint ({res_model})")
 
 
 def _same_state(a, b):
@@ -753,12 +846,9 @@ def resume_and_export(root, first, dev):
     """The `resume` phase on the BDQ run that `train_and_run` left in
     `root` (see the module docstring). `first` holds that run's frames and
     replay rows. Returns the resumed run's launch counts."""
-    import numpy as np
     import torch
 
-    from deep_rl_grasping_tpu_torch.envs.grasp_env import BatchedGraspEnv, GraspEnv
     from deep_rl_grasping_tpu_torch.ops import raster_cuda, solver_cuda
-    from deep_rl_grasping_tpu_torch.tools import export_policy
     from deep_rl_grasping_tpu_torch.training import callbacks as cb
     from deep_rl_grasping_tpu_torch.training import train, trainer
     from deep_rl_grasping_tpu_torch.utils import config as cfg_util
@@ -825,30 +915,7 @@ def resume_and_export(root, first, dev):
 
     # export, then `run --npz` of the bundle against `run --model` of the
     # checkpoint, from the JAX package's validation scenes
-    out = os.path.join(root, "bundle")
-    info = export_policy.main([resumed, "--out", out, "--latest"])
-    log("export", bundle_bytes=os.path.getsize(info["path"]), source=info["source"],
-        checkpoint_step=info["checkpoint_step"], files=sorted(os.listdir(out)))
-    res_npz = train.main(["run", "--npz", out, "--scenes", SIMP_SCENES])
-    res_model = train.main(["run", "--model", resumed, "--scenes", SIMP_SCENES])
-    _, pol_npz, _ = train.load_bundle_actor(out, dev)
-    config, pol_model, _ = train.load_checkpoint_actor(resumed, dev)
-    env = GraspEnv(config, evaluate=True, validate=True, device=dev,
-                   encoder=trainer._maybe_load_encoder(config, dev))
-    trainer.set_action_interface(env, "BDQ", config)
-    states = train.load_scenes(SIMP_SCENES, dev)
-    obs = BatchedGraspEnv(env, EPISODES, torch.Generator(device=dev)).observe_batch(states)
-    a_npz, a_model = pol_npz.act(obs), pol_model.act(obs)
-    actions_equal = torch.equal(a_npz, a_model)
-    log("run_npz_vs_model", scenes=SIMP_SCENES, success_rate_npz=res_npz["success_rate"],
-        success_rate_model=res_model["success_rate"],
-        mean_return_npz=res_npz["mean_return"], mean_return_model=res_model["mean_return"],
-        episodes=res_npz["episodes"], first_step_actions_equal=actions_equal,
-        first_step_actions_distinct=int(torch.unique(a_npz, dim=0).shape[0]))
-    if not actions_equal or any(res_npz[k] != res_model[k] for k in
-                                ("success_rate", "mean_return", "mean_length", "episodes")):
-        raise RuntimeError(f"run --npz of the export ({res_npz}) differs from run --model "
-                           f"of the checkpoint ({res_model})")
+    export_and_compare(resumed, os.path.join(root, "bundle"), dev)
     return launches
 
 
@@ -1115,6 +1182,21 @@ def main():
         simp_launches["resume"] = resume_and_export(bdq_root, first, dev)
     simp_launches["train_dqn"] = train_and_run("train_dqn", DQN_TRAIN_CONFIG, "raster",
                                                "run_model_dqn", algo="DQN")
+
+    # ---- 15. train_ddpg, train_ppo, train_trpo: the continuous simplified
+    # task at full width (DDPG: 64 uniform updates of batch 64, demo
+    # seeding; PPO, TRPO: 128 envs x 64 steps per policy iteration, two
+    # iterations), then `run --model` on each checkpoint; and the PPO
+    # checkpoint exported and evaluated as `run --npz` against `run --model`
+    simp_launches["train_ddpg"] = train_and_run("train_ddpg", DDPG_TRAIN_CONFIG, "raster",
+                                                "run_model_ddpg", algo="DDPG")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ppo_") as ppo_root:
+        simp_launches["train_ppo"] = train_and_run("train_ppo", PPO_TRAIN_CONFIG, "raster",
+                                                   "run_model_ppo", algo="PPO", root=ppo_root)
+        export_and_compare(os.path.join(ppo_root, "run"), os.path.join(ppo_root, "bundle"), dev,
+                           "_ppo")
+    simp_launches["train_trpo"] = train_and_run("train_trpo", TRPO_TRAIN_CONFIG, "raster",
+                                                "run_model_trpo", algo="TRPO")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)

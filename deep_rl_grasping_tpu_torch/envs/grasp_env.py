@@ -147,7 +147,7 @@ class GraspEnv:
         self.actuator_spec = act.ActuatorSpec.from_config(config)
         self.reward_spec = rew.RewardSpec.from_config(config)
         if self.reward_spec.table_clearing:
-            raise NotImplementedError("table clearing is not ported yet")
+            raise NotImplementedError("table clearing is not ported yet (ROADMAP Queue 1 item 3)")
         self.curriculum_spec = curr.CurriculumSpec.from_config(config)
 
         scene_cfg = config["scene"]

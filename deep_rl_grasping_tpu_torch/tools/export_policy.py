@@ -23,7 +23,6 @@ import argparse
 import json
 import os
 
-from deep_rl_grasping_tpu_torch.models.networks import SACActor
 from deep_rl_grasping_tpu_torch.training import callbacks as cb
 from deep_rl_grasping_tpu_torch.training import train
 from deep_rl_grasping_tpu_torch.utils import io_utils, policy_io
@@ -76,13 +75,14 @@ def main(argv=None):
         print("no best_model checkpoint; exporting the latest")
     step = ckpt.best_step() if best else ckpt.latest_step()
     config, policy, normalizer = train.load_checkpoint_actor(run_dir, device, best=best)
-    net = policy if isinstance(policy, SACActor) else policy.net
+    algo = config.get("algorithm", "sac").upper()
     source = "best" if best else "latest"
-    path = policy_io.save_policy(out_dir, net, normalizer.obs_rms, normalizer.ret_rms,
-                                 dict(source=source, source_dir=run_dir, checkpoint_step=step))
+    path = policy_io.save_policy(out_dir, train.policy_net(policy), normalizer.obs_rms,
+                                 normalizer.ret_rms,
+                                 dict(source=source, source_dir=run_dir, checkpoint_step=step),
+                                 algo=algo)
     io_utils.save_yaml(io_utils.load_yaml(os.path.join(run_dir, "config.yaml")),
                        os.path.join(out_dir, "config.yaml"))
-    algo = config.get("algorithm", "sac").upper()
     lines = provenance(out_dir, run_dir, source, step, algo, path, _runs(run_dir))
     with open(os.path.join(out_dir, "PROVENANCE.md"), "w") as f:
         f.write("\n".join(lines) + "\n")

@@ -2,37 +2,43 @@
 deep_rl_grasping_tpu/training/train.py).
 
     python -m deep_rl_grasping_tpu_torch.training.train train \
-        --config configs/sac_rgbd_flagship.yaml --algo SAC|DQN|BDQ \
+        --config configs/sac_rgbd_flagship.yaml --algo SAC|DQN|BDQ|DDPG|PPO|TRPO \
         --model_dir <dir> [--load_dir <dir>] [--timestep N] [--seed S] [-s] \
         [--device cuda|cpu]
     python -m deep_rl_grasping_tpu_torch.training.train run \
         --model <dir> [-b] | --npz trained/sac_full_flagship_r5c \
         [--episodes N | --scenes <npz>] [-t] [--stochastic] [--device cuda|cpu]
 
-`train` is the single-device off-policy branch of train.py:78-473 for
-SAC, DQN and BDQ (`robot.discrete` is set for the two Q-learners, `-s`
-selects the simplified task): demo seeding and periodic refresh, the chunk
-loop, the monitor, scalar, curriculum and TensorBoard logs, `stop_at_sr`,
-the q-tripwire rollback (SAC with `q_clip`), the eval cadence (protocol
-eval plus the eval at the training lambda), checkpoints and the best
-model, replay-ring snapshots (the newest `tpu.ring_checkpoint_rows` rows
-every `tpu.ring_checkpoint_every` frames and at the end), SIGTERM handling
-and the `done:` / `stopped:` marker. `--load_dir` resumes from the newest
-checkpoint and ring snapshot another `train` of the port wrote
-(train.py:166-247): the learner with its optimizer state, the normalizer
-moments, the curriculum and the frame count, so that epsilon, the
-target-entropy anneal and the eval, checkpoint, ring and demo-refresh
-cadences go on where they were (the JAX loop restarts the cadences at
-0, so a resume there evaluates and checkpoints after its first chunk);
-then the ring, unless its stride or observation width differs from this
-run's; demo seeding runs again, since the demo ring is not saved. Each
-call appends one line to <model_dir>/runs.jsonl (command, seed, card,
-frames; a resume into another directory carries the earlier lines over).
+`train` is the single-device branch of train.py:78-473: off-policy for
+SAC, DQN, BDQ and DDPG (training/trainer.py), on-policy for PPO and TRPO
+(training/onpolicy.py, train.py:149-155: a chunk is one policy iteration
+of `n_steps` x num_envs frames, and there is no replay, demo seeding or
+ring snapshot). `robot.discrete` is set for the two Q-learners, `-s`
+selects the simplified task. It runs demo seeding and periodic refresh,
+the chunk loop, the monitor, scalar, curriculum and TensorBoard logs,
+`stop_at_sr`, the q-tripwire rollback (SAC with `q_clip`), the eval
+cadence (protocol eval plus the eval at the training lambda), checkpoints
+and the best model, replay-ring snapshots (the newest
+`tpu.ring_checkpoint_rows` rows every `tpu.ring_checkpoint_every` frames
+and at the end), SIGTERM handling and the `done:` / `stopped:` marker.
+`--load_dir` resumes from the newest checkpoint and ring snapshot another
+`train` of the port wrote (train.py:166-247): the learner with its
+optimizer state, the normalizer moments, the curriculum and the frame
+count, so that epsilon, the target-entropy anneal and the eval,
+checkpoint, ring and demo-refresh cadences go on where they were (the
+JAX loop restarts the cadences at 0, so a resume there evaluates and
+checkpoints after its first chunk); then the ring, unless its stride or
+observation width differs from this run's; demo seeding runs again,
+since the demo ring is not saved. Each call appends one line to
+<model_dir>/runs.jsonl (command, seed, card, frames; a resume into
+another directory carries the earlier lines over).
 
 `run` evaluates a checkpoint this port wrote (`--model`, latest or `-b`
-best) or a SAC, DQN or BDQ policy bundle (`--npz`, committed or written
-by tools/export_policy.py) on the 100-episode protocol (train.py:474), or
-from stored scenes (`--scenes`, an npz of env states under `scene.*` such
+best) or a policy bundle (`--npz`, committed or written by
+tools/export_policy.py) of any of the six algorithms (PPO and TRPO act
+with their policy's mode, as the JAX package's on-policy branch does,
+train.py:488-491) on the 100-episode protocol (train.py:474), or from
+stored scenes (`--scenes`, an npz of env states under `scene.*` such
 as deep_rl_grasping_tpu_torch/data/simplified_r5_val_scenes.npz; one
 episode per scene). Depth, RGB-D and encoder-latent observations (the CNN
 or the MLP torso, as the config says), the full and the simplified task
@@ -62,13 +68,18 @@ import torch
 
 from deep_rl_grasping_tpu_torch.algos import replay as replay_mod
 from deep_rl_grasping_tpu_torch.algos.bdq import BDQ
+from deep_rl_grasping_tpu_torch.algos.ddpg import DDPG
 from deep_rl_grasping_tpu_torch.algos.dqn import DQN
 from deep_rl_grasping_tpu_torch.algos.normalize import NormalizerState, RunningMeanStd
+from deep_rl_grasping_tpu_torch.algos.ppo import PPO
+from deep_rl_grasping_tpu_torch.algos.trpo import TRPO
 from deep_rl_grasping_tpu_torch.envs.actuator import ActuatorSpec
 from deep_rl_grasping_tpu_torch.envs.grasp_env import env_state_from_numpy, observation_shape
 from deep_rl_grasping_tpu_torch.models.networks import SACActor
 from deep_rl_grasping_tpu_torch.training import callbacks as cb
-from deep_rl_grasping_tpu_torch.training.trainer import ALGOS, Evaluator, Trainer
+from deep_rl_grasping_tpu_torch.training.onpolicy import OnPolicyTrainer
+from deep_rl_grasping_tpu_torch.training.trainer import (ALGOS, OFF_POLICY, ON_POLICY, Evaluator,
+                                                         Trainer)
 from deep_rl_grasping_tpu_torch.utils import config as cfg_util
 from deep_rl_grasping_tpu_torch.utils import io_utils, policy_io
 from deep_rl_grasping_tpu_torch.utils.tb_events import TensorBoardWriter
@@ -118,6 +129,13 @@ def ring_settings(tpu):
 
 def _rms(r: RunningMeanStd):
     return {"mean": r.mean, "var": r.var, "count": r.count}
+
+
+def make_trainer(config, algo, device, seed=0):
+    """The trainer of `algo`: the replay `Trainer` for the off-policy
+    learners, the `OnPolicyTrainer` for PPO and TRPO."""
+    cls = OnPolicyTrainer if algo.upper() in ON_POLICY else Trainer
+    return cls(config, algo=algo, device=device, seed=seed)
 
 
 def _bundle(trainer: Trainer, state):
@@ -204,7 +222,8 @@ def train(args):
     config = cfg_util.load_config(args.config)
     algo = args.algo.upper()
     if algo not in ALGOS:
-        raise SystemExit(f"the port trains {', '.join(ALGOS)}, not {algo}")
+        raise SystemExit(f"unknown algorithm {algo}; the port trains {', '.join(ALGOS)}")
+    off_policy = algo in OFF_POLICY
     model_dir = args.model_dir
     os.makedirs(os.path.join(model_dir, "best_model"), exist_ok=True)
 
@@ -226,12 +245,14 @@ def train(args):
     total_timesteps = int(config.get(algo, {}).get("total_timesteps", 1_000_000))
     eval_freq = int(tpu.get("eval_freq", 50_000))
     checkpoint_freq = int(tpu.get("checkpoint_freq", 25_000))
-    chunk_steps = max(int(tpu.get("chunk_steps", 20)), 1)
+    # an on-policy chunk is one policy iteration (train.py:149-155)
+    chunk_steps = max(int(tpu.get("chunk_steps", 20)), 1) if off_policy else 1
 
     t_start = time.perf_counter()
-    trainer = Trainer(config, algo=algo, device=device, seed=args.seed)
+    trainer = make_trainer(config, algo, device, args.seed)
     state = trainer.init_state()
-    frames_per_chunk = chunk_steps * trainer.num_envs
+    frames_per_chunk = chunk_steps * (trainer.num_envs if off_policy
+                                      else trainer.frames_per_iteration)
 
     # resume: the newest checkpoint of --load_dir, then its ring snapshot,
     # before demo seeding (the demo ring is not saved: seeding refills it at
@@ -244,7 +265,7 @@ def train(args):
         log.info("resumed the learner from %s at %d frames (lambda %.3f)", args.load_dir,
                  resume_frames, float(state.curriculum.lam))
     ring_rows, ring_every = ring_settings(tpu)
-    ring_ckpt = cb.RingCheckpointer(model_dir) if ring_rows > 0 else None
+    ring_ckpt = cb.RingCheckpointer(model_dir) if ring_rows > 0 and off_policy else None
     if ring_ckpt is not None and args.load_dir:
         same_dir = os.path.abspath(args.load_dir) == os.path.abspath(model_dir)
         snap = (ring_ckpt if same_dir else cb.RingCheckpointer(args.load_dir)).restore_raw()
@@ -259,7 +280,7 @@ def train(args):
                 log.info("restored %d replay frames from the ring snapshot in %.3f s",
                          ring_restored, ring_restore_s)
 
-    demo_frames = int(tpu.get("demo_frames", 0))
+    demo_frames = int(tpu.get("demo_frames", 0)) if off_policy else 0
     if demo_frames > 0:
         state, n_done, n_succ = trainer.seed_demos(state, demo_frames)
         log.info("seeded %d demo frames: %d episodes, %.1f%% success", demo_frames,
@@ -282,7 +303,7 @@ def train(args):
         q_band = [float(qc[0]) + margin, float(qc[1]) - margin]
     last_rollback = -10 ** 9
 
-    demo_refresh_every = int(tpu.get("demo_refresh_every", 0))
+    demo_refresh_every = int(tpu.get("demo_refresh_every", 0)) if off_policy else 0
     demo_refresh_frames = int(tpu.get("demo_refresh_frames", 0))
     stop_at_sr = tpu.get("stop_at_sr")
     stop_streak = 0
@@ -408,15 +429,16 @@ def train(args):
                 curriculum_lambda=float(cur.lam), success_rate=float(cur.sr_mean),
                 episodes=int(state.ep_ring_n), metrics=row, eval=res,
                 updates=trainer.algo.step, phase_seconds=trainer.clock.totals(),
-                checkpoint_step=ckpt.latest_step(), replay_rows=buf.size,
+                checkpoint_step=ckpt.latest_step(),
+                replay_rows=None if buf is None else buf.size,
                 rows_off_priority_1=int((buf.priority[:buf.size] != 1.0).sum())
                 if trainer.prioritized else None)
 
 
 def _policy_for(config, device):
     """An untrained policy of the kind a config trains: the SAC actor (the
-    CNN torso on image observations, the MLP torso on latents), or the DQN
-    / BDQ learner, on `device`."""
+    CNN torso on image observations, the MLP torso on latents), or the DQN,
+    BDQ, DDPG, PPO or TRPO learner, on `device`."""
     algo = config.get("algorithm", "sac").upper()
     obs_shape = observation_shape(config)
     spec = ActuatorSpec.from_config(config)
@@ -428,7 +450,20 @@ def _policy_for(config, device):
         return DQN(obs_shape, spec.num_discrete_actions, config, device)
     if algo == "BDQ":
         return BDQ(obs_shape, 3 if spec.simplified else 5, config, device)
-    raise SystemExit(f"the port evaluates {', '.join(ALGOS)} policies, not {algo}")
+    if algo == "DDPG":
+        return DDPG(obs_shape, spec.action_dim, config, device)
+    if algo in ON_POLICY:
+        n = spec.num_discrete_actions if spec.discrete else spec.action_dim
+        return {"PPO": PPO, "TRPO": TRPO}[algo](obs_shape, n, config, spec.discrete, device)
+    raise SystemExit(f"unknown algorithm {algo}; the port evaluates {', '.join(ALGOS)}")
+
+
+def policy_net(policy):
+    """The network a policy bundle holds: the SAC actor itself, DDPG's
+    actor, or the learner's network (Q network or actor-critic)."""
+    if isinstance(policy, SACActor):
+        return policy
+    return policy.actor if isinstance(policy, DDPG) else policy.net
 
 
 def load_scenes(path, device):
@@ -442,18 +477,17 @@ def load_scenes(path, device):
 
 def load_bundle_actor(model_dir, device):
     """Build the policy for a committed bundle's config (a SAC actor, or a
-    DQN / BDQ learner) and load its weights. Returns (config, policy,
-    normalizer)."""
+    learner) and load its weights. Returns (config, policy, normalizer)."""
     config = cfg_util.load_config(os.path.join(model_dir, "config.yaml"))
     policy = _policy_for(config, device)
-    net = policy if isinstance(policy, SACActor) else policy.net
-    net, normalizer, _meta = policy_io.load_policy(model_dir, net, device)
+    net, normalizer, _meta = policy_io.load_policy(
+        model_dir, policy_net(policy), device, algo=config.get("algorithm", "sac").upper())
     net.eval()
     return config, policy, normalizer
 
 
 def load_checkpoint_actor(model_dir, device, best=False):
-    """The policy (SAC actor, or DQN / BDQ learner) and normalizer of a
+    """The policy (SAC actor, or learner) and normalizer of a
     checkpoint written by `train` (latest, or the best evaluation). Returns
     (config, policy, normalizer)."""
     config = cfg_util.load_config(os.path.join(model_dir, "config.yaml"))
@@ -505,7 +539,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser()
     sub = parser.add_subparsers(required=True)
 
-    tp = sub.add_parser("train", help="train SAC, DQN or BDQ from a config")
+    tp = sub.add_parser("train", help="train SAC, DQN, BDQ, DDPG, PPO or TRPO from a config")
     tp.add_argument("--config", type=str, required=True)
     tp.add_argument("--algo", type=str, required=True)
     tp.add_argument("--model_dir", type=str, required=True)

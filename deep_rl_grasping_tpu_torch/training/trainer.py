@@ -1,8 +1,9 @@
 """Training loop and evaluation harness (port of
 deep_rl_grasping_tpu/training/trainer.py: `EvalMixin.evaluate` :132,
 `Trainer` :225, `init_state` :333, `seed_demos` :375, `train_step` :484,
-`train_chunk` :638, `make_algo` :90), single device, off-policy: SAC, DQN
-and BDQ.
+`train_chunk` :638, `make_algo` :90), single device, off-policy: SAC, DQN,
+BDQ and DDPG. PPO and TRPO train through training/onpolicy.py's
+`OnPolicyTrainer`, which shares `EvalMixin` and the loop state.
 
 One training iteration steps `num_envs` envs once with the current policy,
 stores the frames, and runs `updates_per_step` updates on batches drawn
@@ -11,13 +12,14 @@ tail when `tpu.demo_fraction` > 0), or prioritized when the DQN or BDQ
 block sets `prioritized_replay`, each update then writing its |TD| back as
 the drawn rows' priorities (trainer.py:513-517, :562-568). DQN and BDQ act
 epsilon-greedily with epsilon annealed over env frames, not updates
-(trainer.py:443-455); evaluation is greedy. PyTorch runs it eagerly: the
+(trainer.py:443-455); DDPG adds Gaussian noise to its actor's action
+(trainer.py:438-447); evaluation is greedy. PyTorch runs it eagerly: the
 env step goes through the CUDA kernels on the card, the update through
 cuDNN/cuBLAS and autograd. Differences from the JAX package, outcome
 unchanged:
 
-* The learner (`SAC`, `DQN` or `BDQ`, its modules and optimizers) lives in
-  the trainer, not in the loop state.
+* The learner (`SAC`, `DQN`, `BDQ` or `DDPG`, its modules and
+  optimizers) lives in the trainer, not in the loop state.
 * While the replay is below `learning_starts` the update is skipped, where
   the JAX package computes it and throws it away; the metrics of such an
   iteration are NaN.
@@ -47,7 +49,9 @@ from deep_rl_grasping_tpu_torch.algos import normalize as norm_mod
 from deep_rl_grasping_tpu_torch.algos import replay as replay_mod
 from deep_rl_grasping_tpu_torch.algos import sac
 from deep_rl_grasping_tpu_torch.algos.bdq import BDQ
+from deep_rl_grasping_tpu_torch.algos.ddpg import DDPG
 from deep_rl_grasping_tpu_torch.algos.dqn import DQN, QLearner
+from deep_rl_grasping_tpu_torch.algos.ppo import ActorCriticLearner
 from deep_rl_grasping_tpu_torch.envs import curriculum as curr_mod
 from deep_rl_grasping_tpu_torch.envs import scripted
 from deep_rl_grasping_tpu_torch.envs.grasp_env import BatchedGraspEnv, EnvState, GraspEnv
@@ -62,7 +66,9 @@ MONITOR_RING = 4096
 # Floor of the lambda cap on the target-entropy anneal (the JAX package's
 # tpu.entropy_anneal_floor default; no config sets it).
 ENTROPY_ANNEAL_FLOOR = 0.5
-ALGOS = ("SAC", "DQN", "BDQ")
+OFF_POLICY = ("SAC", "DQN", "BDQ", "DDPG")
+ON_POLICY = ("PPO", "TRPO")
+ALGOS = OFF_POLICY + ON_POLICY
 
 
 def refuse_unported(tpu_cfg):
@@ -108,17 +114,27 @@ def make_algo(config, env: GraspEnv, algo_name, device):
     if algo_name == "BDQ":
         set_action_interface(env, algo_name, config)
         return BDQ(env.obs_shape, 3 if env.simplified else 5, config, device)
-    raise NotImplementedError(f"the port trains {', '.join(ALGOS)}; not {algo_name} "
-                              "(ROADMAP Queue 1 items 4-5)")
+    if algo_name == "DDPG":
+        return DDPG(env.obs_shape, env.action_dim, config, device)
+    if algo_name in ON_POLICY:
+        raise ValueError(f"{algo_name} is on-policy: it trains through "
+                         "training/onpolicy.py's OnPolicyTrainer, not the replay trainer")
+    raise ValueError(f"unknown algorithm {algo_name}; the port trains {', '.join(ALGOS)}")
 
 
 def act(policy, obs, gen, deterministic=False, frames=None):
-    """Actions of a SAC actor (tanh of the mean, or a sample) or of a DQN /
+    """Actions of a SAC actor (tanh of the mean, or a sample), of a DQN /
     BDQ learner (greedy, or epsilon-greedy at `frames` env frames; the
-    learner's update count when not given, as trainer.py:451 does)."""
+    learner's update count when not given, as trainer.py:451 does), of
+    DDPG (the actor's action, or with exploration noise) or of PPO / TRPO
+    (the mode, or a draw from the policy)."""
     if isinstance(policy, QLearner):
         eps = 0.0 if deterministic else policy.epsilon(policy.step if frames is None else frames)
         return policy.act(obs, gen, eps)
+    if isinstance(policy, ActorCriticLearner):
+        return policy.act(obs, gen, deterministic)[0]
+    if isinstance(policy, DDPG):
+        return policy.act(obs, gen, deterministic)
     return sac.act(policy, obs, gen, deterministic=deterministic)
 
 
@@ -153,7 +169,7 @@ class EvalMixin:
         `initial_states` (an `EnvState` of `n_episodes` envs on the device)
         starts the protocol from given scenes instead of drawing them, for
         example the JAX package's own evaluation scenes. `actor` is a SAC
-        actor or a DQN / BDQ learner (see `act`)."""
+        actor or a DQN, BDQ, DDPG, PPO or TRPO learner (see `act`)."""
         eval_env = GraspEnv(self.config, evaluate=True, validate=validate, device=self.device,
                             encoder=self.encoder)
         set_action_interface(eval_env, self.algo_name, self.config)
@@ -221,6 +237,22 @@ class LoopState(_Replace):
     ep_ring: torch.Tensor          # (MONITOR_RING, 3) per-episode (return, length, success)
     ep_ring_n: torch.Tensor        # () int64 episodes ever written
     demo_buffer: replay_mod.ReplayBuffer = None
+
+
+def record_episodes(state: LoopState, dones, infos) -> LoopState:
+    """The per-episode monitor ring after one env step: the last
+    MONITOR_RING of the episodes that step finished (a spare slot takes
+    the dropped ones)."""
+    R = MONITOR_RING
+    d64 = dones.to(torch.int64)
+    offset = torch.cumsum(d64, 0) - d64
+    n_new = d64.sum()
+    pos = torch.where(dones & (offset >= n_new - R), (state.ep_ring_n + offset) % R, R)
+    rows = torch.stack([infos["episode_return"], infos["episode_step"].to(torch.float32),
+                        infos["is_success"].to(torch.float32)], -1)
+    ring = torch.cat([state.ep_ring, state.ep_ring.new_zeros(1, 3)])
+    ring.index_copy_(0, pos, rows)
+    return state.replace(ep_ring=ring[:R], ep_ring_n=state.ep_ring_n + n_new)
 
 
 class _Clock:
@@ -303,7 +335,7 @@ class Trainer(EvalMixin):
 
     @property
     def policy(self):
-        """What acts: the SAC actor, or the DQN / BDQ learner (see `act`)."""
+        """What acts: the SAC actor, or the learner (see `act`)."""
         return self.algo.actor if self.algo_name == "SAC" else self.algo
 
     # ------------------------------------------------------------------ init
@@ -450,21 +482,9 @@ class Trainer(EvalMixin):
             nan = torch.tensor(math.nan, device=self.device)
             metrics = {k: nan for k in self.algo.METRIC_KEYS}
 
-        # per-episode monitor ring: keep the last MONITOR_RING of this step's
-        # finished episodes (spare slot R takes the dropped ones)
-        R = MONITOR_RING
-        d64 = dones.to(torch.int64)
-        offset = torch.cumsum(d64, 0) - d64
-        n_new = d64.sum()
-        pos = torch.where(dones & (offset >= n_new - R), (state.ep_ring_n + offset) % R, R)
-        rows = torch.stack([infos["episode_return"], infos["episode_step"].to(torch.float32),
-                            infos["is_success"].to(torch.float32)], -1)
-        ring = torch.cat([state.ep_ring, state.ep_ring.new_zeros(1, 3)])
-        ring.index_copy_(0, pos, rows)
-        new_state = state.replace(
+        new_state = record_episodes(state, dones, infos).replace(
             env_states=env_states, obs=next_obs, curriculum=curriculum, buffer=buffer,
-            normalizer=normalizer, global_step=state.global_step + self.num_envs,
-            ep_ring=ring[:R], ep_ring_n=state.ep_ring_n + n_new)
+            normalizer=normalizer, global_step=state.global_step + self.num_envs)
         return new_state, metrics
 
     def train_chunk(self, state: LoopState, n_steps: int):

@@ -3,8 +3,9 @@
 Reads the committed `trained/*/policy.npz` bundles (written by the JAX
 package's utils/policy_io.py, arrays keyed by Flax key path such as
 `policy['MLP_0']['Dense_0']['kernel']`, policy_io.py:28-31,79) into a
-`SACActor`, `QNetwork` or `BDQNetwork` state_dict and a
-`NormalizerState`. Layout changes:
+`SACActor`, `QNetwork`, `BDQNetwork`, `ActorCritic` (PPO, TRPO) or
+`DeterministicActor` (DDPG) state_dict and a `NormalizerState`. Layout
+changes:
 
 * Dense kernels are (in, out) in Flax and (out, in) in torch: transposed.
 * Conv kernels are HWIO in Flax and OIHW in torch: permuted.
@@ -19,12 +20,18 @@ builds the outer layer first: `Dense_0` is the advantage output,
 the value. In `BDQNetwork`, `MLP_0` is the trunk, `MLP_1` + `Dense_0` the
 value stream and `MLP_{2+d}` + `Dense_{1+d}` branch d. The value and
 branch MLPs have the same shapes, so only the order tells them apart.
+`ActorCritic` (ppo.py:23-44) applies no MLP torso: `MLP_0` is the policy
+tower, `MLP_1` the value tower, `Dense_0` the logits or mean, `Dense_1`
+the value, and `log_std` a bare array at the top of the tree.
+`DeterministicActor` and `SingleCritic` (ddpg.py:24-44) are `MLP_0` and
+`Dense_0`, after the CNN on image observations.
 
 `actor_state_dict`, `critic_state_dict` and `q_state_dict` take plain
 nested dicts of numpy arrays in the Flax layout too; `load_sac_state`
 carries a whole Flax `SACState` (actor, critic, target critic, log_alpha)
 into the port's SAC and `load_q_state` a `DQNState` / `BDQState` (params,
-target params) into the port's DQN / BDQ, which is how the tests hand them
+target params) into the port's DQN / BDQ; `load_flax_params` loads any of
+these networks from its Flax params. That is how the tests hand them
 freshly initialised Flax params.
 
 `save_policy` writes the other way (utils/policy_io.py:34-47 of the JAX
@@ -43,7 +50,9 @@ import re
 import numpy as np
 import torch
 
+from deep_rl_grasping_tpu_torch.algos.ddpg import DeterministicActor, SingleCritic
 from deep_rl_grasping_tpu_torch.algos.normalize import NormalizerState, RunningMeanStd
+from deep_rl_grasping_tpu_torch.algos.ppo import ActorCritic
 from deep_rl_grasping_tpu_torch.models.networks import (
     BDQNetwork,
     QNetwork,
@@ -83,9 +92,17 @@ def _torso(torso, prefix):
 
 
 def layout(module):
-    """Where each layer of a `SACActor`, `SACCritic`, `QNetwork` or
-    `BDQNetwork` sits in the Flax param tree: (Flax path, torch prefix,
-    kind) per layer, in the creation order described above."""
+    """Where each layer of a `SACActor`, `SACCritic`, `QNetwork`,
+    `BDQNetwork`, `ActorCritic`, `DeterministicActor` or `SingleCritic`
+    sits in the Flax param tree: (Flax path, torch prefix, kind) per layer,
+    in the creation order described above; kind "param" is a bare array."""
+    if isinstance(module, (ActorCritic, DeterministicActor, SingleCritic)):
+        out = _torso(module.torso, "torso.")[0] if module.torso is not None else []
+        if isinstance(module, ActorCritic):
+            out += _mlp(module.pi, ("MLP_0",), "pi.") + _mlp(module.vf, ("MLP_1",), "vf.")
+            out += [(("Dense_0",), "head.", "dense"), (("Dense_1",), "value_head.", "dense")]
+            return out + ([] if module.log_std is None else [(("log_std",), "log_std", "param")])
+        return out + _mlp(module.mlp, ("MLP_0",), "mlp.") + [(("Dense_0",), "head.", "dense")]
     if isinstance(module, SACActor):
         out, i = _torso(module.torso, "torso.")
         if module.mlp is not None:
@@ -144,6 +161,9 @@ def _state_dict(params: dict, module) -> dict:
                 raise ValueError(f"the params hold no {'/'.join(path)} for "
                                  f"{type(module).__name__}.{prefix[:-1]}")
             node = node[p]
+        if kind == "param":
+            out[prefix] = np.asarray(node, np.float32)
+            continue
         out[prefix + "weight"] = _to_torch(node["kernel"], kind)
         out[prefix + "bias"] = np.asarray(node["bias"], np.float32)
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
@@ -156,6 +176,9 @@ def flax_params(state_dict, module) -> dict:
     flatten order)."""
     params: dict = {}
     for path, prefix, kind in layout(module):
+        if kind == "param":
+            params[path[0]] = np.asarray(state_dict[prefix].detach().cpu(), np.float32)
+            continue
         node = params
         for p in path:
             node = node.setdefault(p, {})
@@ -209,6 +232,12 @@ def _load_strict(module, sd):
     return module
 
 
+def load_flax_params(module, params: dict):
+    """Load Flax-layout params (nested dict of arrays) into any network
+    `layout` knows, strictly: every array of `params` has its place."""
+    return _load_strict(module, _policy_state_dict(params, module))
+
+
 def load_actor_params(actor: SACActor, params: dict):
     """Load Flax-layout params into `actor` (strict: every key must match)."""
     return _load_strict(actor, actor_state_dict(params, actor))
@@ -257,18 +286,22 @@ def read_bundle(npz_dir):
     return _nest(policy), rms["obs_rms"], rms["ret_rms"], meta
 
 
-BUNDLE_KINDS = {SACActor: ("SAC", "actor_params"), QNetwork: ("DQN", "params"),
-                BDQNetwork: ("BDQ", "params")}
+# network -> (algorithms whose bundle holds it, the JAX state field it is)
+BUNDLE_KINDS = {SACActor: (("SAC",), "actor_params"), QNetwork: (("DQN",), "params"),
+                BDQNetwork: (("BDQ",), "params"), ActorCritic: (("PPO", "TRPO"), "params"),
+                DeterministicActor: (("DDPG",), "actor_params")}
 
 
-def load_policy(npz_dir, actor, device="cpu"):
-    """Load a committed bundle into `actor` (a SACActor, QNetwork or
-    BDQNetwork, which must match the bundle's algorithm); every array is
-    used and the load is strict. Returns (actor, NormalizerState with the
-    bundle's moments, meta)."""
+def load_policy(npz_dir, actor, device="cpu", algo=None):
+    """Load a committed bundle into `actor` (a SACActor, QNetwork,
+    BDQNetwork, ActorCritic or DeterministicActor), which must match the
+    bundle's algorithm (`algo`, where given); every array is used and the
+    load is strict. Returns (actor, NormalizerState with the bundle's
+    moments, meta)."""
     policy, obs_rms, ret_rms, meta = read_bundle(npz_dir)
-    algo, field = BUNDLE_KINDS[type(actor)]
-    if meta.get("algo") != algo or meta.get("params_field") != field:
+    algos, field = BUNDLE_KINDS[type(actor)]
+    algo = algo or (meta.get("algo") if meta.get("algo") in algos else algos[0])
+    if algo not in algos or meta.get("algo") != algo or meta.get("params_field") != field:
         raise ValueError(f"bundle meta {meta} is not a {algo} bundle")
     _load_strict(actor, _policy_state_dict(policy, actor))
     actor.to(device)
@@ -294,14 +327,20 @@ def _flat_keys(prefix, tree):
     return out
 
 
-def save_policy(out_dir, net, obs_rms, ret_rms, meta=None):
-    """Write <out_dir>/policy.npz for `net` (a SACActor, QNetwork or
-    BDQNetwork) and the normalizer moments `obs_rms`, `ret_rms`
+def save_policy(out_dir, net, obs_rms, ret_rms, meta=None, algo=None):
+    """Write <out_dir>/policy.npz for `net` (a SACActor, QNetwork,
+    BDQNetwork, DeterministicActor, or an ActorCritic with `algo` PPO or
+    TRPO) and the normalizer moments `obs_rms`, `ret_rms`
     (RunningMeanStd or dicts of mean, var, count), in the JAX package's
     layout: `policy[...]` arrays by Flax key path, `obs_rms.mean` and the
     like, and `__meta__` (sorted-key JSON of `meta` with the bundle's
     `algo`, `params_field` and `format_version` 1). Returns the path."""
-    algo, field = BUNDLE_KINDS[type(net)]
+    algos, field = BUNDLE_KINDS[type(net)]
+    if algo is None and len(algos) == 1:
+        algo = algos[0]
+    if algo not in algos:
+        raise ValueError(f"a {type(net).__name__} is the policy of {' or '.join(algos)}, "
+                         f"not of {algo}")
     arrays = _flat_keys("policy", flax_params(net.state_dict(), net))
     for name, rms in (("obs_rms", obs_rms), ("ret_rms", ret_rms)):
         for k in ("mean", "var", "count"):

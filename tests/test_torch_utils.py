@@ -141,7 +141,8 @@ print(" ".join(mods))
     pkg = "deep_rl_grasping_tpu_torch."
     assert {pkg + m for m in ("algos.replay", "algos.sac", "envs.scripted", "envs.curriculum",
                               "training.callbacks", "training.trainer", "training.train",
-                              "utils.tb_events", "models.networks")} <= mods
+                              "utils.tb_events", "models.networks", "algos.ddpg", "algos.ppo",
+                              "algos.trpo", "training.onpolicy")} <= mods
 
 
 def test_chip_smoke_refuses_without_a_card():
