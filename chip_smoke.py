@@ -78,7 +78,36 @@ just before and read just after:
   frames/s, ms per control step of the env (the on-policy rollout's),
   ms per update (a PPO minibatch step, or TRPO's whole update: gradient,
   conjugate gradient, line search, value fit) and per iteration's
-  updates, peak GiB and the launches.
+  updates, peak GiB and the launches;
+* table clearing on the OnTable tray: first each kernel against its plain
+  version on the clearing path's states (eval: the clearing bundle's
+  config, B=100; train: configs/sac_table_clearing.yaml, B=128, randomized
+  cameras), on scenes where every env's highest object was just removed
+  (dead, still in place) and on the plain reset scenes (`solver_check`,
+  `raster` lines with path `*_clearing*`), and the removal check
+  (`removal`: the kernel render of the post-removal states shows no pixel
+  of a dead object that would be in view if it were alive); then `run --npz
+  trained/sac_table_clearing_v2` (100 episodes, 200 control steps) and the
+  bundle twice from the JAX package's validation scenes of it
+  (`eval_clearing`: success rate, mean and per-episode objects cleared);
+  `trained/sac_full_flagship_r5b` twice from its JAX validation scenes
+  (`eval_r5b`); the scripted expert on the clearing task at lambda 0 and 1,
+  128 episodes each (`expert_clearing`); `train` on
+  configs/sac_table_clearing.yaml at full width (128 envs, 128 updates of
+  batch 256, the 500k ring, demo seeding), cut by TRAIN_CUTS, and `run
+  --model` on its checkpoint (`train_clearing`, `run_model_clearing`);
+* the folded update: `train` on configs/sac_simplified_batched_quality.yaml
+  at full width (256 envs, update_batch_scale 8: 4 updates of batch 1024
+  per iteration, the full_r4 encoder's latents), cut by TRAIN_CUTS, and
+  `run --model` (`train_batched`, `run_model_batched`; ms per folded
+  update);
+* encoder training: `collect_dataset` of 2048 + 256 masked depth images
+  from configs/sac_full_flagship.yaml (`--keep_task --mix_lambda`, 128
+  envs; `collect_encoder`), `train_encoder train` of the full-width
+  autoencoder (32-32-32 filters, 100 latents, batch 128) for AE_EPOCHS
+  epochs and `test` (`train_ae`), then the trained encoder loaded through
+  the trainer's `_maybe_load_encoder` and one latent env step of
+  configs/sac_encoder_flagship.yaml with it (`ae_latent_step`).
 
 Each phase prints one JSON line with its elapsed seconds. The last three
 lines are the card's name and power limit (nvidia-smi), one JSON object
@@ -95,6 +124,7 @@ Imports only the standard library, numpy, torch and the port.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import subprocess
@@ -147,6 +177,31 @@ ONPOLICY_CUTS = {("ALGO", "total_timesteps"): 16384, ("tpu", "eval_freq"): 8192,
 DDPG_TRAIN_CONFIG = os.path.join("configs", "ddpg_simplified.yaml")
 PPO_TRAIN_CONFIG = os.path.join("configs", "ppo_simplified.yaml")
 TRPO_TRAIN_CONFIG = os.path.join("configs", "trpo_simplified.yaml")
+# Table clearing: the one clearing bundle (JAX CLI on the CPU, `run --npz
+# trained/sac_table_clearing_v2`: success 0.00, objects cleared 0.00 of
+# 100 episodes) and the JAX package's validation scenes of it; its
+# training config.
+CLEARING_BUNDLE = os.path.join("trained", "sac_table_clearing_v2")
+CLEARING_SCENES = os.path.join("deep_rl_grasping_tpu_torch", "data", "clearing_v2_val_scenes.npz")
+CLEARING_TRAIN_CONFIG = os.path.join("configs", "sac_table_clearing.yaml")
+JAX_CLEARING = {"success_rate": 0.0, "mean_cleared": 0.0}
+# The one bundle on the default object-object solver options, gated on its
+# own JAX validation scenes (0.84 val at export; the 2-sigma band).
+R5B_BUNDLE = os.path.join("trained", "sac_full_flagship_r5b")
+R5B_SCENES = os.path.join("deep_rl_grasping_tpu_torch", "data", "r5b_val_scenes.npz")
+R5B_BAND = (0.77, 0.91)
+EXPERT_EPISODES = 128
+# The JAX package's expert under the same protocol on the CPU, 128
+# episodes per lambda, one JSON line per lambda with the per-episode values
+# (`JAX_PLATFORMS=cpu python tests/test_torch_clearing.py > <this file>`)
+JAX_EXPERT_CLEARING = os.path.join("deep_rl_grasping_tpu_torch", "data",
+                                   "jax_expert_clearing.jsonl")
+BATCHED_TRAIN_CONFIG = os.path.join("configs", "sac_simplified_batched_quality.yaml")
+# Encoder training: the full-task collect of encoder_files/full_r4's
+# recipe, cut to AE_IMAGES images and AE_EPOCHS epochs.
+AE_COLLECT_CONFIG = os.path.join("configs", "sac_full_flagship.yaml")
+AE_IMAGES = (2048, 256)
+AE_EPOCHS = 3
 # the losses each learner's training run must log as finite numbers
 LOSS_KEYS = {"SAC": ("critic_loss", "actor_loss", "bc_loss", "alpha_loss", "q_target_mean",
                      "entropy"),
@@ -310,28 +365,99 @@ def solver_gaps(a, b):
     return out
 
 
-def solver_check_scenes(env, B, seed):
-    """B scenes of `env` drawn from `seed` and settled through the solver
-    kernel, as the main path settles them; the second half of the batch
-    then descends onto object slot 0 and closes the fingers, so the pad
-    rows (the stiff squeeze) are exercised as well as the statics. Returns
-    the sim state and the generator, to draw on from."""
+def _close_half(st, slot):
+    """The second half of the batch descends onto object `slot` (B,) and
+    closes the fingers, so the pad rows (the stiff squeeze) are exercised
+    as well as the statics."""
     import torch
 
     from deep_rl_grasping_tpu_torch.sim.types import FINGER_CLOSED
+
+    B, dev = st.gripper.q.shape[0], st.gripper.q.device
+    half = torch.arange(B, device=dev) >= B // 2
+    q = st.gripper.q.clone()
+    pos = st.objects.pos[torch.arange(B, device=dev), slot]
+    q[half, 0:2] = pos[half, 0:2]
+    q[half, 2] = 0.07
+    g = st.gripper.replace(
+        q=q, target=q[:, :4].clone(),
+        finger_target=torch.where(half, FINGER_CLOSED, st.gripper.finger_target))
+    return st.replace(gripper=g)
+
+
+def solver_check_scenes(env, B, seed):
+    """B scenes of `env` drawn from `seed` and settled through the solver
+    kernel, as the main path settles them; the second half of the batch
+    then descends onto object slot 0 and closes the fingers. Returns the
+    sim state and the generator, to draw on from."""
+    import torch
 
     dev = env.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     st = env.reset_env(gen, B, 1.0, settle_substeps=48).sim
-    half = torch.arange(B, device=dev) >= B // 2
-    q = st.gripper.q.clone()
-    q[half, 0:2] = st.objects.pos[half, 0, 0:2]
-    q[half, 2] = 0.07
-    g = st.gripper.replace(
-        q=q, target=q[:, :4].clone(),
-        finger_target=torch.where(half, FINGER_CLOSED, st.gripper.finger_target))
-    return st.replace(gripper=g), gen
+    return _close_half(st, torch.zeros(B, dtype=torch.long, device=dev)), gen
+
+
+def clearing_scenes(env, B, seed):
+    """Table-clearing scenes: as `solver_check_scenes`, but every even env
+    has just had its highest object removed as a clear removes it (dead,
+    left where it was, so still in view), and the closing half descends
+    onto its first alive object."""
+    import torch
+
+    dev = env.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    st = env.reset_env(gen, B, 1.0, settle_substeps=48).sim
+    removed = env._remove_highest(st)
+    even = torch.arange(B, device=dev) % 2 == 0
+    st = st.replace(objects=st.objects.replace(
+        alive=torch.where(even[:, None], removed.objects.alive, st.objects.alive)))
+    return _close_half(st, torch.argmax(st.objects.alive.to(torch.int32), -1)), gen
+
+
+def removal_check(path, env, B):
+    """The raster kernel on B states of `env` just after every env's highest
+    object was removed: no pixel carries a removed object's id, though
+    objects would be seen there alive (their pixels counted with the
+    removed objects alive again, same grippers), and the kernel render
+    agrees with the plain one by the raster check's rules. Logs `removal`;
+    raises on a failure."""
+    import torch
+
+    from deep_rl_grasping_tpu_torch.ops import raster_cuda
+    from deep_rl_grasping_tpu_torch.render import raycast
+
+    dev = env.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    st = env.reset_env(gen, B, 1.0, settle_substeps=48)
+    dead = env._remove_highest(st.sim)
+    removed = st.sim.objects.alive & ~dead.objects.alive
+    if not bool(removed.sum(-1).eq(1).all()):
+        raise RuntimeError(f"removal check ({path}): not one object removed per env")
+    rid = (3 + torch.argmax(removed.to(torch.int32), -1))[:, None, None]
+    cam_pos, cam_R = raycast.camera_pose_from_gripper(dead.gripper.q, st.cam_t, st.cam_R)
+    args = lambda sim: (sim, env.sim_params, cam_pos, cam_R, st.intrinsics, env.im_h, env.im_w,
+                        env.near, env.far)
+    d_k, s_k = raster_cuda.render_batch(*args(dead))
+    d_p, s_p = raycast.render(*args(dead))
+    _, s_alive = raster_cuda.render_batch(*args(dead.replace(
+        objects=dead.objects.replace(alive=st.sim.objects.alive))))
+    px_if_alive = (s_alive == rid).sum((1, 2))
+    px_dead = int((s_k == rid).sum())
+    same = s_k == s_p
+    mismatch = int((~same).sum())
+    depth_err = float((d_k - d_p).abs()[same].max())
+    log("removal", path=path, B=B, envs_with_removed_in_view=int((px_if_alive > 0).sum()),
+        removed_px_if_alive=int(px_if_alive.sum()), removed_px=px_dead,
+        seg_mismatch_px=mismatch, seg_mismatch_cap=int(SEG_MISMATCH_FRAC * B * env.im_h * env.im_w),
+        depth_max_abs_err=depth_err, depth_edge_tol=DEPTH_EDGE_TOL)
+    if (px_dead or not int((px_if_alive > 0).sum()) or depth_err > DEPTH_EDGE_TOL
+            or mismatch > SEG_MISMATCH_FRAC * B * env.im_h * env.im_w):
+        raise RuntimeError(f"raster kernel after a removal ({path}): {px_dead} removed-object "
+                           f"pixels, {mismatch} seg mismatches, depth error {depth_err}")
 
 
 def solver_check(path, env, B, seed, scenes=solver_check_scenes, n_sub=None, call=None):
@@ -504,12 +630,13 @@ def raster_scenes(env, B, sim, gen):
                 env.near, env.far)
 
 
-def kernel_checks(path, env, B):
+def kernel_checks(path, env, B, scenes=solver_check_scenes):
     """Solver, raster (depth + seg) and raster-with-shade kernels against
     their plain versions on one path's states (B envs of `env`, on the
-    card); logs one line per kernel and raises on a disagreement. Returns
-    the errors, times and bounds. The solver is checked on the scenes of
-    each of SOLVER_SEEDS; the raster on the first seed's."""
+    card, drawn by `scenes`); logs one line per kernel and raises on a
+    disagreement. Returns the errors, times and bounds. The solver is
+    checked on the scenes of each of SOLVER_SEEDS; the raster on the first
+    seed's."""
     import torch
 
     from deep_rl_grasping_tpu_torch.ops import raster_cuda, solver_cuda
@@ -517,7 +644,7 @@ def kernel_checks(path, env, B):
     from deep_rl_grasping_tpu_torch.sim import physics
 
     params, n_sub = env.sim_params, env.gripper_substeps
-    runs = [solver_check(path, env, B, seed) for seed in SOLVER_SEEDS]
+    runs = [solver_check(path, env, B, seed, scenes=scenes) for seed in SOLVER_SEEDS]
     errs = {k: max(r[3][k] for r in runs) for k in SOLVER_TOL}
     st, out_p, gen, _ = runs[0]
     k_in = solver_cuda.kernel_inputs(st, params)
@@ -676,7 +803,8 @@ def same_scene_evals(bundle, scenes):
     same = [train.main(["run", "--npz", bundle, "--scenes", scenes]) for _ in range(2)]
     if same[0]["episodes"] != EPISODES or not np.isfinite(same[0]["mean_return"]):
         raise RuntimeError(f"same-scene evaluation of {bundle} is malformed: {same[0]}")
-    if any(same[0][k] != same[1][k] for k in ("success_rate", "mean_return", "mean_length")):
+    if any(same[0][k] != same[1][k] for k in ("success_rate", "mean_return", "mean_length",
+                                              "episode_cleared")):
         raise RuntimeError(f"two evaluations of {bundle} from the same scenes differ: {same}")
     return same
 
@@ -694,7 +822,7 @@ def train_and_run(phase, config_path, raster_key, run_phase, algo="SAC", root=No
     import torch
 
     from deep_rl_grasping_tpu_torch.ops import raster_cuda, solver_cuda
-    from deep_rl_grasping_tpu_torch.training import train
+    from deep_rl_grasping_tpu_torch.training import train, trainer
     from deep_rl_grasping_tpu_torch.utils import config as cfg_util
     from deep_rl_grasping_tpu_torch.utils import io_utils
 
@@ -719,8 +847,10 @@ def train_and_run(phase, config_path, raster_key, run_phase, algo="SAC", root=No
                                                  "cg_iters", "max_kl", "vf_iters")
                         if k in algo_cfg})
     else:
-        updates_per_iter = tpu["updates_per_step"]
-        shape = dict(updates_per_step=updates_per_iter, batch_size=algo_cfg["batch_size"],
+        folded = copy.deepcopy(cfg)  # the learner's shape under tpu.update_batch_scale
+        updates_per_iter = trainer.fold_updates(folded, algo)
+        shape = dict(updates_per_step=updates_per_iter, batch_size=folded[algo]["batch_size"],
+                     update_batch_scale=tpu.get("update_batch_scale", 1),
                      demo_fraction=tpu.get("demo_fraction", 0),
                      buffer_size=algo_cfg["buffer_size"], demo_capacity=tpu["demo_capacity"])
         if algo in ("DQN", "BDQ"):
@@ -965,6 +1095,167 @@ def encoder_check(st, dev):
         raise RuntimeError(f"encoder on the card disagrees with the CPU: {gap}")
 
 
+def two_sample_2sigma(values, other=EPISODES):
+    """Two-sample 2-sigma of a difference of means from the per-episode
+    values of both samples; `other` is the other sample's values, or only
+    its size where its variance is taken as this sample's (the JAX CLI
+    prints means only)."""
+    import numpy as np
+
+    v = np.asarray(values, np.float64)
+    o = v if np.ndim(other) == 0 else np.asarray(other, np.float64)
+    n_other = other if np.ndim(other) == 0 else o.size
+    return 2.0 * float(np.sqrt(np.var(v) / v.size + np.var(o) / n_other))
+
+
+def clearing_evals(dev):
+    """`eval_clearing` and `eval_r5b` (see the module docstring). Returns
+    the clearing eval's launch counts."""
+    import numpy as np
+
+    from deep_rl_grasping_tpu_torch.ops import raster_cuda, solver_cuda
+    from deep_rl_grasping_tpu_torch.training import train
+
+    reset_counts(solver_cuda, raster_cuda)
+    res = train.main(["run", "--npz", CLEARING_BUNDLE, "--episodes", str(EPISODES)])
+    launches = read_counts(solver_cuda, raster_cuda)
+    same = same_scene_evals(CLEARING_BUNDLE, CLEARING_SCENES)
+    sr, cl = same[0]["success_rate"], same[0]["mean_cleared"]
+    p = (sr + JAX_CLEARING["success_rate"]) / 2  # binomial, at the pair's mean rate
+    sig_sr = 2.0 * (2 * p * (1 - p) / EPISODES) ** 0.5
+    sig_cl = two_sample_2sigma(same[0]["episode_cleared"])
+    log("eval_clearing", bundle=CLEARING_BUNDLE, episodes=res["episodes"],
+        torch_scenes_success_rate=res["success_rate"],
+        torch_scenes_mean_cleared=res["mean_cleared"],
+        torch_scenes_episode_cleared=res["episode_cleared"],
+        control_steps=res["control_steps"], mean_length=res["mean_length"],
+        wall_seconds=res["wall_seconds"], launches=launches, scenes=CLEARING_SCENES,
+        success_rate=sr, mean_cleared=cl, mean_return=same[0]["mean_return"],
+        episode_cleared=same[0]["episode_cleared"],
+        same_scene_control_steps=same[0]["control_steps"],
+        same_scene_wall_seconds=[x["wall_seconds"] for x in same], repeat_equal=True,
+        jax_cli=JAX_CLEARING, two_sample_2sigma={"success_rate": sig_sr, "mean_cleared": sig_cl},
+        within_2sigma={"success_rate": abs(sr - JAX_CLEARING["success_rate"]) <= sig_sr,
+                       "mean_cleared": abs(cl - JAX_CLEARING["mean_cleared"]) <= sig_cl})
+    if (res["episodes"] != EPISODES or res["control_steps"] > 200
+            or not np.isfinite(res["mean_return"]) or min(res["episode_cleared"]) < 0):
+        raise RuntimeError(f"evaluation of {CLEARING_BUNDLE} is malformed: {res}")
+    if min(launches["solver"], launches["raster"]) <= 0:
+        raise RuntimeError(f"a kernel of the eval_clearing path was not launched: {launches}")
+    same_b = same_scene_evals(R5B_BUNDLE, R5B_SCENES)
+    sr_b = same_b[0]["success_rate"]
+    log("eval_r5b", bundle=R5B_BUNDLE, scenes=R5B_SCENES, success_rate=sr_b,
+        mean_return=same_b[0]["mean_return"], episodes=same_b[0]["episodes"],
+        wall_seconds=[x["wall_seconds"] for x in same_b], repeat_equal=True, band=R5B_BAND,
+        in_band=R5B_BAND[0] <= sr_b <= R5B_BAND[1])
+    return launches
+
+
+def expert_clearing(dev):
+    """`expert_clearing`: the scripted expert on the clearing task at lambda
+    0 and 1. Returns the launch counts of both runs."""
+    from deep_rl_grasping_tpu_torch.ops import raster_cuda, solver_cuda
+    from deep_rl_grasping_tpu_torch.tools import expert_rate
+
+    with open(JAX_EXPERT_CLEARING) as f:
+        refs = {r["lam"]: r for r in map(json.loads, f)}
+    total = {"solver": 0, "raster": 0, "raster_shade": 0}
+    for lam in (0.0, 1.0):
+        reset_counts(solver_cuda, raster_cuda)
+        res = expert_rate.expert_rollouts(CLEARING_TRAIN_CONFIG, EXPERT_EPISODES, lam, device=dev)
+        launches = read_counts(solver_cuda, raster_cuda)
+        ref = refs[lam]
+        sigma = {k: two_sample_2sigma(res[ep], ref[ep]) for k, ep in
+                 (("success_rate", "episode_success"), ("mean_cleared", "episode_cleared"))}
+        log("expert_clearing", config=CLEARING_TRAIN_CONFIG, lam=lam, episodes=res["episodes"],
+            success_rate=res["success_rate"], mean_cleared=res["mean_cleared"],
+            jax_cpu={k: ref[k] for k in ("episodes", "success_rate", "mean_cleared")},
+            two_sample_2sigma=sigma,
+            within_2sigma={k: abs(res[k] - ref[k]) <= sigma[k] for k in sigma},
+            mean_length=res["mean_length"], episode_success=res["episode_success"],
+            episode_cleared=res["episode_cleared"], control_steps=res["control_steps"],
+            wall_seconds=res["wall_seconds"], launches=launches)
+        if res["episodes"] != EXPERT_EPISODES or launches["solver"] <= 0:
+            raise RuntimeError(f"expert rollouts on the clearing task are malformed: {res}")
+        total = {k: total[k] + launches[k] for k in total}
+    return total
+
+
+def encoder_training(dev, root):
+    """`collect_encoder`, `train_ae` and `ae_latent_step` (see the module
+    docstring) in the directory `root`. Returns their launch counts."""
+    import numpy as np
+    import torch
+
+    from deep_rl_grasping_tpu_torch.envs.grasp_env import BatchedGraspEnv, GraspEnv
+    from deep_rl_grasping_tpu_torch.ops import raster_cuda, solver_cuda
+    from deep_rl_grasping_tpu_torch.training import collect_dataset, train_encoder, trainer
+    from deep_rl_grasping_tpu_torch.utils import config as cfg_util
+    from deep_rl_grasping_tpu_torch.utils import io_utils
+
+    data = os.path.join(root, "dataset.npz")
+    reset_counts(solver_cuda, raster_cuda)
+    info = collect_dataset.main(["--config", AE_COLLECT_CONFIG, "--keep_task", "--mix_lambda",
+                                 "--train", str(AE_IMAGES[0]), "--test", str(AE_IMAGES[1]),
+                                 "--num_envs", "128", "--out", data, "--device", str(dev)])
+    collect_launches = read_counts(solver_cuda, raster_cuda)
+    with np.load(data) as f:
+        shapes = {k: list(f[k].shape) for k in ("train", "test")}
+        test_x = f["test"]
+    log("collect_encoder", config=AE_COLLECT_CONFIG, images=info["images"], shapes=shapes,
+        collect_seconds=info["collect_seconds"], nonzero_px_frac=info["nonzero_px_frac"],
+        dataset_bytes=os.path.getsize(data), launches=collect_launches)
+    if (shapes != {"train": [AE_IMAGES[0], 64, 64, 1], "test": [AE_IMAGES[1], 64, 64, 1]}
+            or not 0.0 < info["nonzero_px_frac"] < 1.0
+            or min(collect_launches["solver"], collect_launches["raster"]) <= 0):
+        raise RuntimeError(f"the collected dataset is malformed: {info}, {collect_launches}")
+
+    enc_dir, enc_cfg = os.path.join(root, "encoder"), os.path.join(root, "encoder.yaml")
+    io_utils.save_yaml(dict(train_encoder.DEFAULT_ENCODER_CONFIG, epochs=AE_EPOCHS), enc_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    tr = train_encoder.main(["train", "--config", enc_cfg, "--data", data, "--model_dir",
+                             enc_dir, "--device", str(dev)])
+    test_mse = train_encoder.main(["test", "--data", data, "--model_dir", enc_dir,
+                                   "--device", str(dev)])
+    cpu_mse = train_encoder.main(["test", "--data", data, "--model_dir", enc_dir,
+                                  "--device", "cpu"])
+    zero_mse = float((test_x ** 2).mean())
+    history = open(os.path.join(enc_dir, "history.csv")).read().split()[1:]
+    log("train_ae", **tr, test_mse=test_mse, test_mse_cpu_same_weights=cpu_mse,
+        test_mse_of_zeros=zero_mse, history=history,
+        files=sorted(os.listdir(enc_dir)), weights_bytes=os.path.getsize(
+            os.path.join(enc_dir, "weights.npz")),
+        max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if (tr["epochs"] != AE_EPOCHS or not np.isfinite(test_mse) or not test_mse < zero_mse
+            or abs(cpu_mse - test_mse) > 0.05 * test_mse):
+        raise RuntimeError(f"autoencoder training is malformed: {tr}, test {test_mse}, "
+                           f"cpu {cpu_mse}, zeros {zero_mse}")
+
+    cfg = cfg_util.load_config(ENCODER_TRAIN_CONFIG)
+    cfg["sensor"]["encoder_dir"] = enc_dir
+    enc = trainer._maybe_load_encoder(cfg, dev)
+    env = GraspEnv(cfg, device=dev, encoder=enc)
+    B = int(cfg["tpu"]["num_envs"])
+    benv = BatchedGraspEnv(env, B, torch.Generator(device=dev).manual_seed(0))
+    cur = benv.init_curriculum()
+    reset_counts(solver_cuda, raster_cuda)
+    with torch.no_grad():
+        states, obs = benv.reset(cur)
+        _, obs2, reward, _, _, _ = benv.step(states, torch.zeros(B, env.action_dim, device=dev),
+                                             cur)
+    step_launches = read_counts(solver_cuda, raster_cuda)
+    log("ae_latent_step", encoder_dir=enc_dir, B=B, obs_shape=list(obs2.shape),
+        latent_max_abs=float(obs2[:, :env.encoding_dim].abs().max()),
+        latent_env_spread=float(obs2[:, :env.encoding_dim].std(0).mean()),
+        finite=bool(torch.isfinite(obs2).all()), reward_mean=float(reward.mean()),
+        launches=step_launches)
+    if (tuple(obs2.shape) != (B, env.encoding_dim + 1) or not bool(torch.isfinite(obs2).all())
+            or min(step_launches["solver"], step_launches["raster"]) <= 0):
+        raise RuntimeError(f"a latent env step with the trained encoder is malformed: "
+                           f"{tuple(obs2.shape)}, {step_launches}")
+    return {"collect_encoder": collect_launches, "ae_latent_step": step_launches}
+
+
 def kernel_entry(name, source, replaces, launches, launches_by_path, max_abs_err, timing,
                  **extra):
     """One entry of the `kernels` line from (device ms, plain ms, operations,
@@ -1198,6 +1489,38 @@ def main():
     simp_launches["train_trpo"] = train_and_run("train_trpo", TRPO_TRAIN_CONFIG, "raster",
                                                 "run_model_trpo", algo="TRPO")
 
+    # ---- 16. table clearing on the tray: the kernels on the clearing
+    # path's states, some just after a removal (eval: the bundle's config,
+    # B=100; train: the training config, B=128, randomized cameras), and
+    # the removal check; then the bundle's evaluations, r5b's gate, the
+    # expert, and the full-width training run
+    clear_env = GraspEnv(cfg_util.load_config(os.path.join(CLEARING_BUNDLE, "config.yaml")),
+                         evaluate=True, validate=True, device=dev)
+    clear_train_env = GraspEnv(cfg_util.load_config(CLEARING_TRAIN_CONFIG), device=dev)
+    for path, penv, B in (("eval_clearing", clear_env, EPISODES),
+                          ("train_clearing", clear_train_env,
+                           int(clear_train_env.config["tpu"]["num_envs"]))):
+        if not (penv.reward_spec.table_clearing and penv.sim_params.has_tray):
+            raise RuntimeError(f"the {path} env should clear a table on the tray")
+        checks[path] = kernel_checks(path, penv, B, scenes=clearing_scenes)
+        removal_check(path, penv, B)
+    solver_err = max(solver_err, *(checks[p]["solver_err"] for p in ("eval_clearing",
+                                                                     "train_clearing")))
+    depth_err = max(depth_err, *(checks[p]["depth_err"] for p in ("eval_clearing",
+                                                                  "train_clearing")))
+    new_launches = {"eval_clearing": clearing_evals(dev), "expert_clearing": expert_clearing(dev),
+                    "train_clearing": train_and_run("train_clearing", CLEARING_TRAIN_CONFIG,
+                                                    "raster", "run_model_clearing")}
+
+    # ---- 17. the folded update: update_batch_scale 8 at full width
+    new_launches["train_batched"] = train_and_run("train_batched", BATCHED_TRAIN_CONFIG, "raster",
+                                                  "run_model_batched")
+
+    # ---- 18. encoder training: collect, train, test, and a latent step
+    # with the trained encoder
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ae_") as ae_root:
+        new_launches.update(encoder_training(dev, ae_root))
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: n/a",
@@ -1209,7 +1532,8 @@ def main():
     by_path = lambda key: {"eval": launches[key], "train": train_launches[key],
                            "eval_encoder": enc_launches[key],
                            "train_encoder_latent": latent_launches[key],
-                           **{p: c[key] for p, c in simp_launches.items()}}
+                           **{p: c[key] for p, c in simp_launches.items()},
+                           **{p: c[key] for p, c in new_launches.items()}}
     bound = lambda t: max(t[3] / HBM_BYTES_PER_S, t[2] / FP32_FLOPS_PER_S) * 1e3
     # the simplified step's calls, by B: device ms and bound of each
     simp_calls = {f"B={B}": {c: {"n_substeps": t[5], "device_ms": t[0], "bound_ms": bound(t)}
@@ -1228,6 +1552,12 @@ def main():
                                            for k, v in simp_calls.items()},
                      bound_ms_8_substeps={k: v["move"]["bound_ms"] for k, v in simp_calls.items()},
                      simplified_calls=simp_calls,
+                     device_ms_16_substeps_clearing={
+                         "B=100": checks["eval_clearing"]["solver"][0],
+                         "B=128": checks["train_clearing"]["solver"][0]},
+                     bound_ms_16_substeps_clearing={
+                         "B=100": bound(checks["eval_clearing"]["solver"]),
+                         "B=128": bound(checks["train_clearing"]["solver"])},
                      registers=solver_res["registers"], local_bytes=solver_res["local_bytes"],
                      shared_bytes=solver_res["shared_bytes_train"]),
         kernel_entry("raster_kernel", src + "raster.cu",
@@ -1235,6 +1565,8 @@ def main():
                      by_path("raster"), depth_err, checks["eval"]["raster"],
                      pairs_tested=checks["eval"]["pairs_tested"],
                      bound_ms_all_pairs=checks["eval"]["bound_ms_all_pairs"]["raster"],
+                     device_ms_clearing={"B=100": checks["eval_clearing"]["raster"][0],
+                                         "B=128": checks["train_clearing"]["raster"][0]},
                      tile=raster_cuda.TILE),
         kernel_entry("raster_kernel_shade", src + "raster.cu",
                      "deep_rl_grasping_tpu/ops/raster_pallas.py:39 (with_shade, :204-205)",

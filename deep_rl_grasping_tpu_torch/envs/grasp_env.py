@@ -27,11 +27,18 @@ encoding_dim wide.
 Actions are decoded by envs/actuator.py: continuous, flat discrete, or,
 with `branched_actions` (set for BDQ), one bin per action dimension.
 
-Not ported yet: table clearing.
+Table clearing (`reward.table_clearing`, on the OnTable tray): a lift
+clears the highest alive object, which goes dead in the live state (the
+solver and the raster skip dead objects), and reopens the gripper; the
+episode succeeds when the last object is cleared (grasp_env.py:377-390,
+:425-441). `info["objects_alive"]` is the post-step count before the
+auto-reset, so an episode's cleared count is its first count minus this
+at its end.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -146,8 +153,6 @@ class GraspEnv:
         self.time_feature = bool(config.get("time_feature", False)) and not self.image_obs
         self.actuator_spec = act.ActuatorSpec.from_config(config)
         self.reward_spec = rew.RewardSpec.from_config(config)
-        if self.reward_spec.table_clearing:
-            raise NotImplementedError("table clearing is not ported yet (ROADMAP Queue 1 item 3)")
         self.curriculum_spec = curr.CurriculumSpec.from_config(config)
 
         scene_cfg = config["scene"]
@@ -370,11 +375,32 @@ class GraspEnv:
         status = torch.where(trigger, s_attempt, s_move)
         return state.replace(sim=sim, reward_state=rs_move), reward, status
 
+    def _remove_highest(self, sim: SimState):
+        """Table clearing: the highest alive object goes dead, and the
+        fingers, their target and the close latch go back to open
+        (grasp_env.py:377-390)."""
+        obj, g = sim.objects, sim.gripper
+        z = torch.where(obj.alive, obj.pos[..., 2], torch.full_like(obj.pos[..., 2], -math.inf))
+        hi = torch.argmax(z, -1)
+        alive = obj.alive.clone()
+        alive[torch.arange(alive.shape[0], device=alive.device), hi] = False
+        q = g.q.clone()
+        q[:, 4:6] = FINGER_OPEN
+        g = g.replace(q=q, finger_target=torch.full_like(g.finger_target, FINGER_OPEN),
+                      gripper_close=torch.zeros_like(g.gripper_close))
+        return sim.replace(objects=obj.replace(alive=alive), gripper=g)
+
     def _full_outcome_core(self, state: EnvState, sim: SimState):
         h = sim.gripper.q[:, 2]
         detected = self.object_detected(sim)
-        reward, status, new_rs = rew.shaped_reward(
-            self.reward_spec, state.reward_state, h, detected, state.lift_dist)
+        if self.reward_spec.table_clearing:
+            num_alive = sim.objects.alive.to(torch.int32).sum(-1)
+            reward, status, new_rs, clear = rew.table_clearing_reward(
+                self.reward_spec, state.reward_state, h, detected, state.lift_dist, num_alive)
+            sim = tree_where(clear, self._remove_highest(sim), sim)
+        else:
+            reward, status, new_rs = rew.shaped_reward(
+                self.reward_spec, state.reward_state, h, detected, state.lift_dist)
         return state.replace(sim=sim, reward_state=new_rs), reward, status
 
     def _finalize_step(self, gen, state: EnvState, stepped: EnvState, reward, status, lam):

@@ -1,9 +1,9 @@
 """Rewards, batched over the env axis (port of
-deep_rl_grasping_tpu/envs/rewards.py without table clearing):
-`shaped_reward` for the full task (rewards.py:25-52 / 99-143), and the
-simplified task's `simplified_descend` and `simplified_outcome`
-(rewards.py:153-168; its close-and-lift grasp attempt is physics, run by
-the env step).
+deep_rl_grasping_tpu/envs/rewards.py): `shaped_reward` for the full task
+(rewards.py:25-113), `table_clearing_reward` for its table-clearing
+variant (rewards.py:116-152), and the simplified task's
+`simplified_descend` and `simplified_outcome` (rewards.py:153-168; its
+close-and-lift grasp attempt is physics, run by the env step).
 
 Status codes follow RobotEnv.Status (robot.py:40-44).
 """
@@ -85,6 +85,31 @@ def shaped_reward(spec: RewardSpec, rs: RewardState, robot_height, detected, lif
     status = torch.where(lifted, SUCCESS, RUNNING).to(torch.int32)
     new_rs = RewardState(lifting=detected, start_height=start_h, old_height=robot_height)
     return reward, status, new_rs
+
+
+def table_clearing_reward(spec: RewardSpec, rs: RewardState, robot_height, detected, lift_dist,
+                          num_alive):
+    """The shaped reward with table clearing. A lift of a held object by
+    more than `lift_dist` clears it (the env then removes the highest alive
+    object and reopens the gripper): `lift_success` while objects remain,
+    `terminal_reward` and SUCCESS when it was the last one. `num_alive` is
+    the count before the removal. After a clear the lifting latch resets.
+    Returns (reward, status, new RewardState, cleared)."""
+    start_h = torch.where(rs.lifting, rs.start_height, robot_height)
+    lifted = detected & (robot_height - start_h > lift_dist)
+    cleared_all = lifted & (num_alive <= 1)
+    delta_z = robot_height - rs.old_height
+    intermediate = torch.where(
+        detected & spec.shaped, spec.grasp_reward + spec.delta_z_scale * delta_z,
+        torch.zeros_like(delta_z))
+    running_reward = intermediate - (spec.time_penalty if spec.shaped else 0.01)
+    reward = torch.where(cleared_all, torch.full_like(running_reward, spec.terminal_reward),
+                         torch.where(lifted, torch.full_like(running_reward, spec.lift_success),
+                                     running_reward))
+    status = torch.where(cleared_all, SUCCESS, RUNNING).to(torch.int32)
+    new_rs = RewardState(lifting=detected & ~lifted, start_height=start_h,
+                         old_height=robot_height)
+    return reward, status, new_rs, lifted
 
 
 def simplified_descend(spec: RewardSpec, rs: RewardState, robot_height):

@@ -46,8 +46,8 @@ are all taken.
 
 Both run on the card unless `--device cpu` is given; with no card and no
 `--device cpu` they stop with an error instead of falling back. `train`
-refuses `tpu.sharded` and `tpu.update_batch_scale` > 1
-(`trainer.refuse_unported`).
+refuses `tpu.sharded` (`trainer.refuse_unported`); `tpu.update_batch_scale`
+folds the replay learner's updates (`trainer.fold_updates`).
 """
 
 from __future__ import annotations
@@ -383,6 +383,8 @@ def train(args):
             if frames - last_eval >= eval_freq:
                 actor, norm = trainer.policy, state.normalizer
                 res = trainer.evaluate(actor, norm)
+                for k in ("episode_success", "episode_cleared"):  # the scalar logs take means
+                    res.pop(k)
                 log.info("eval @ %d: %s", frames, res)
                 # second eval at the training lambda while the curriculum ramps
                 if lam < 1.0:
@@ -530,6 +532,7 @@ def run(args):
     print("{:<13}{:>7.2f}".format("Mean reward:", res["mean_return"]))
     print("{:<13}{:>7.2f}".format("Mean steps:", res["mean_length"]))
     print("{:<13}{:>7.2f}".format("Mean success rate:", res["success_rate"]))
+    print("{:<13}{:>7.2f}".format("Mean objects cleared:", res["mean_cleared"]))
     print("{:<13}{:>7.2f}".format("Wall seconds:", wall))
     res["wall_seconds"] = wall
     return res

@@ -73,19 +73,35 @@ ALGOS = OFF_POLICY + ON_POLICY
 
 def refuse_unported(tpu_cfg):
     """Raise on configuration the port cannot honour yet, rather than run
-    something other than what the config asks (ROADMAP Queue 1 lists
-    both items)."""
+    something other than what the config asks (ROADMAP Queue 1 lists the
+    item)."""
     if bool(tpu_cfg.get("sharded", False)):
         raise ValueError(
             "tpu.sharded: true asks for the data-parallel trainer "
             "(deep_rl_grasping_tpu/parallel/train_dp.py), which the port does not have yet "
             "(ROADMAP Queue 1 item 8, multi-GPU); set it to false to train on one device")
-    scale = int(tpu_cfg.get("update_batch_scale", 1) or 1)
-    if scale > 1:
-        raise ValueError(
-            f"tpu.update_batch_scale: {scale} folds that many updates into one larger batch "
-            "(deep_rl_grasping_tpu/training/trainer.py:237-259), which the port does not do "
-            "yet (ROADMAP Queue 1 item 6); set it to 1")
+
+
+def fold_updates(config, algo_name):
+    """The folded update of `tpu.update_batch_scale` = K (trainer.py:237-259):
+    K sequential updates become one update on a K times larger batch, so
+    the sampled transitions per env frame stay the same. Multiplies the
+    algorithm block's batch_size by K in `config`, before the learner is
+    built (SAC's demo tail follows the batch), and returns the updates per
+    iteration, `tpu.updates_per_step` / K. The learning rate and its decay
+    are unchanged: they count gradient steps, now one per folded update."""
+    tpu = config["tpu"]
+    updates = int(tpu.get("updates_per_step", 1))
+    scale = int(tpu.get("update_batch_scale", 1) or 1)
+    if scale <= 1:
+        return updates
+    if updates % scale:
+        raise ValueError(f"tpu.update_batch_scale ({scale}) must divide "
+                         f"tpu.updates_per_step ({updates})")
+    block = dict(config.get(algo_name, {}))
+    block["batch_size"] = int(block.get("batch_size", 256)) * scale
+    config[algo_name] = block
+    return updates // scale
 
 
 def set_action_interface(env: GraspEnv, algo_name, config):
@@ -169,7 +185,8 @@ class EvalMixin:
         `initial_states` (an `EnvState` of `n_episodes` envs on the device)
         starts the protocol from given scenes instead of drawing them, for
         example the JAX package's own evaluation scenes. `actor` is a SAC
-        actor or a DQN, BDQ, DDPG, PPO or TRPO learner (see `act`)."""
+        actor or a DQN, BDQ, DDPG, PPO or TRPO learner (see `act`).
+        Returns `FirstEpisodes.summary()` and the control steps run."""
         eval_env = GraspEnv(self.config, evaluate=True, validate=validate, device=self.device,
                             encoder=self.encoder)
         set_action_interface(eval_env, self.algo_name, self.config)
@@ -190,30 +207,60 @@ class EvalMixin:
                                  f"envs, expected {n_episodes}")
             states = initial_states
             obs = benv.observe_batch(states)
-        B, dev = n_episodes, self.device
-        done_once = torch.zeros(B, dtype=torch.bool, device=dev)
-        ret = torch.zeros(B, device=dev)
-        length = torch.zeros(B, dtype=torch.int32, device=dev)
-        succ = torch.zeros(B, dtype=torch.bool, device=dev)
+        first = FirstEpisodes(states)
         t = 0
-        while t < eval_env.time_horizon and not bool(done_once.all()):
+        while t < eval_env.time_horizon and not first.all_done():
             obs_in = norm_mod.normalize_obs(normalizer, obs) if self.normalize else obs
             actions = act(actor, obs_in, act_gen, deterministic=not stochastic)
             states, obs, rewards, dones, infos, cur = benv.step(states, actions, cur)
-            first_done = dones & ~done_once
-            ret = torch.where(first_done, infos["episode_return"], ret)
-            length = torch.where(first_done, infos["episode_step"], length)
-            succ = torch.where(first_done, infos["is_success"], succ)
-            done_once = done_once | dones
+            first.record(dones, infos)
             t += 1
-        n_done = max(int(done_once.sum()), 1)
-        zero = torch.zeros_like(ret)
+        return dict(first.summary(), control_steps=t)
+
+
+class FirstEpisodes:
+    """Each env's first episode from `states` on: its return, length,
+    success and objects cleared, kept where the env's first `done` comes.
+    The cleared count is the first alive count minus the post-step count
+    at that step (table clearing; 0 on other tasks, trainer.py:169-216)."""
+
+    def __init__(self, states: EnvState):
+        alive = states.sim.objects.alive
+        B, dev = alive.shape[0], alive.device
+        self.init_alive = alive.to(torch.int32).sum(-1)
+        self.done = torch.zeros(B, dtype=torch.bool, device=dev)
+        self.ret = torch.zeros(B, device=dev)
+        self.length = torch.zeros(B, dtype=torch.int32, device=dev)
+        self.succ = torch.zeros(B, dtype=torch.bool, device=dev)
+        self.cleared = torch.zeros(B, dtype=torch.int32, device=dev)
+
+    def record(self, dones, infos):
+        """Keep the results of the episodes that end first at this step."""
+        first = dones & ~self.done
+        self.ret = torch.where(first, infos["episode_return"], self.ret)
+        self.length = torch.where(first, infos["episode_step"], self.length)
+        self.succ = torch.where(first, infos["is_success"], self.succ)
+        self.cleared = torch.where(first, self.init_alive - infos["objects_alive"], self.cleared)
+        self.done = self.done | dones
+
+    def all_done(self):
+        return bool(self.done.all())
+
+    def summary(self):
+        """Means over the finished episodes (`mean_return`, `mean_length`,
+        `success_rate`, `mean_cleared`), their count, and per env
+        `episode_success` and `episode_cleared` (-1 where unfinished)."""
+        done = self.done
+        n_done = max(int(done.sum()), 1)
+        zero = torch.zeros_like(self.ret)
         return dict(
-            mean_return=float(torch.where(done_once, ret, zero).sum()) / n_done,
-            mean_length=float(torch.where(done_once, length.to(ret.dtype), zero).sum()) / n_done,
-            success_rate=float((done_once & succ).sum()) / n_done,
-            episodes=int(done_once.sum()),
-            control_steps=t,
+            mean_return=float(torch.where(done, self.ret, zero).sum()) / n_done,
+            mean_length=float(torch.where(done, self.length.to(zero.dtype), zero).sum()) / n_done,
+            success_rate=float((done & self.succ).sum()) / n_done,
+            mean_cleared=float(torch.where(done, self.cleared, 0).sum()) / n_done,
+            episode_success=(done & self.succ).tolist(),
+            episode_cleared=torch.where(done, self.cleared, -1).tolist(),
+            episodes=int(done.sum()),
         )
 
 
@@ -304,7 +351,7 @@ class Trainer(EvalMixin):
         gen = lambda k: torch.Generator(device=self.device).manual_seed(seed * 4 + k)
         self.env_gen, self.learn_gen, self.demo_gen = gen(0), gen(1), gen(2)
         self.benv = BatchedGraspEnv(self.env, self.num_envs, self.env_gen)
-        self.updates_per_step = int(tpu_cfg.get("updates_per_step", 1))
+        self.updates_per_step = fold_updates(self.config, self.algo_name)
         self.algo = make_algo(self.config, self.env, self.algo_name, self.device)
         self.prioritized = bool(getattr(self.algo, "prioritized", False))
         self.normalize = bool(self.config.get("normalize", False))

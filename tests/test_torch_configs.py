@@ -7,12 +7,13 @@ cut to 2 envs, 8 hidden units per layer and a 64-row replay, the algorithm
 is set as `train` sets it (`robot.discrete` for DQN and BDQ), and
 `train.make_trainer` builds the replay trainer or the on-policy trainer and
 its learner; the trainer's observation shape is the one `run` builds a
-policy for (`grasp_env.observation_shape`). Four configs are refused, each
-with the error that names what the port does not have: table clearing
-(`sac_table_clearing.yaml`, ROADMAP Queue 1 item 3), `tpu.sharded`
-(`sac_simplified_sharded*.yaml`, item 8), `tpu.update_batch_scale` > 1
-(`sac_simplified_batched_quality.yaml`, item 6), and encoder latents with
-no trained encoder (`sac_simplified_demo.yaml` names no
+policy for (`grasp_env.observation_shape`). Table clearing
+(`sac_table_clearing.yaml`) builds its OnTable tray env; the folded update
+(`sac_simplified_batched_quality.yaml`, `tpu.update_batch_scale` 8) builds
+with the batch and the update count folded. Three configs are refused,
+each with the error that names what the port does not have: `tpu.sharded`
+(`sac_simplified_sharded*.yaml`, ROADMAP Queue 1 item 8), and encoder
+latents with no trained encoder (`sac_simplified_demo.yaml` names no
 `sensor.encoder_dir`; a deliberate difference, where the JAX package runs
 a downsampled-depth stand-in). The two camera files are not training
 configs: every other config names them as its sensor files. The loop
@@ -36,10 +37,8 @@ from deep_rl_grasping_tpu_torch.utils import io_utils
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "*.yaml")))
 CAMERA_FILES = {"camera_info.yaml": "camera_info", "camera_transform.yaml": "transform"}
-REFUSED = {"sac_table_clearing.yaml": (NotImplementedError, "table clearing .*item 3"),
-           "sac_simplified_sharded.yaml": (ValueError, "tpu.sharded.*item 8"),
+REFUSED = {"sac_simplified_sharded.yaml": (ValueError, "tpu.sharded.*item 8"),
            "sac_simplified_sharded_quality.yaml": (ValueError, "tpu.sharded.*item 8"),
-           "sac_simplified_batched_quality.yaml": (ValueError, "update_batch_scale.*item 6"),
            "sac_simplified_demo.yaml": (ValueError, "need sensor.encoder_dir")}
 
 
@@ -96,3 +95,14 @@ def test_config_builds_a_trainer_or_is_refused(path):
             assert trainer.frames_per_iteration == 2 * trainer.algo.n_steps
         else:
             assert trainer.buffer_size == 64
+            scale = int(cfg["tpu"].get("update_batch_scale", 1) or 1)
+            assert trainer.updates_per_step * scale == int(cfg["tpu"].get("updates_per_step", 1))
+            assert trainer.batch_size == scale * int(cfg[algo].get("batch_size", 256))
+        if name == "sac_simplified_batched_quality.yaml":
+            assert (trainer.updates_per_step, trainer.batch_size) == (4, 1024)
+            assert trainer.algo.batch_size == 1024
+            assert trainer.algo.bc_tail == 256  # demo_fraction 0.25 of the folded batch
+        if name == "sac_table_clearing.yaml":
+            env = trainer.env
+            assert env.reward_spec.table_clearing and env.sim_params.has_tray
+            assert env.max_slots == 5 and env.time_horizon == 200

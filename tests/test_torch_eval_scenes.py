@@ -45,11 +45,21 @@ more than 2e-2 apart (bf16 layers), and after the step rewards and
 statuses exactly, gripper coordinates and object positions to 1e-4 m
 (40 substeps of float32 contact solving in two summation orders).
 
+`data/r5b_val_scenes.npz` and `data/clearing_v2_val_scenes.npz` hold the
+same for `trained/sac_full_flagship_r5b` (whose default object-object
+solver options settle the scenes elsewhere than r5c's) and for
+`trained/sac_table_clearing_v2` (table clearing on the tray), with the
+r5c file's tolerances.
+
 Rebuild the files (JAX on the CPU, a few minutes each):
 
     JAX_PLATFORMS=cpu python tests/test_torch_eval_scenes.py --rebuild
     JAX_PLATFORMS=cpu python tests/test_torch_eval_scenes.py --rebuild \
         trained/bdq_simplified_r5
+    JAX_PLATFORMS=cpu python tests/test_torch_eval_scenes.py --rebuild \
+        trained/sac_full_flagship_r5b
+    JAX_PLATFORMS=cpu python tests/test_torch_eval_scenes.py --rebuild \
+        trained/sac_table_clearing_v2
 
 `--episodes N` builds the N scenes of an N-episode protocol instead (the
 JAX package's `run --episodes N` draws them in one batch), into
@@ -68,6 +78,8 @@ minute; exit code 0 when every array is equal):
         --compare trained/sac_encoder_flagship_r5
     JAX_PLATFORMS=cpu python tests/test_torch_eval_scenes.py \
         --compare trained/dqn_simplified_r5
+
+(`--compare <bundle> <scenes npz>` compares with another file.)
 """
 
 import os
@@ -93,8 +105,14 @@ SCENES_R5C_VAL = os.path.join(REPO, "deep_rl_grasping_tpu_torch", "data", "r5c_v
 BDQ_BUNDLE = os.path.join(REPO, "trained", "bdq_simplified_r5")
 SCENES_SIMP_VAL = os.path.join(REPO, "deep_rl_grasping_tpu_torch", "data",
                                "simplified_r5_val_scenes.npz")
+R5B_BUNDLE = os.path.join(REPO, "trained", "sac_full_flagship_r5b")
+SCENES_R5B_VAL = os.path.join(REPO, "deep_rl_grasping_tpu_torch", "data", "r5b_val_scenes.npz")
+CLEARING_BUNDLE = os.path.join(REPO, "trained", "sac_table_clearing_v2")
+SCENES_CLEARING_VAL = os.path.join(REPO, "deep_rl_grasping_tpu_torch", "data",
+                                   "clearing_v2_val_scenes.npz")
 # the scenes file each bundle's JAX validation scenes are stored in
-SCENE_FILES = {BUNDLE: SCENES_R5C_VAL, BDQ_BUNDLE: SCENES_SIMP_VAL}
+SCENE_FILES = {BUNDLE: SCENES_R5C_VAL, BDQ_BUNDLE: SCENES_SIMP_VAL, R5B_BUNDLE: SCENES_R5B_VAL,
+               CLEARING_BUNDLE: SCENES_CLEARING_VAL}
 N_EPISODES = 100  # the protocol
 N_CHECK = 8       # envs whose observation and first step are stored
 
@@ -299,6 +317,71 @@ def test_evaluate_starts_from_given_states(scenes):
                                               initial_states=states)
 
 
+# ------------------------------------------------------------------ r5b, clearing
+
+@pytest.fixture(scope="module", params=["r5b", "clearing_v2"])
+def more_scenes(request):
+    """The JAX validation scenes of `trained/sac_full_flagship_r5b` (the
+    default object-object solver options; r5c's scenes do not serve it:
+    `--compare` finds the object poses differ) and of
+    `trained/sac_table_clearing_v2` (table clearing on the tray, a
+    200-step horizon)."""
+    bundle = {"r5b": R5B_BUNDLE, "clearing_v2": CLEARING_BUNDLE}[request.param]
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    data = np.load(SCENE_FILES[bundle])
+    config, actor, normalizer = ttrain.load_bundle_actor(bundle, "cpu")
+    env = tenv.GraspEnv(config, evaluate=True, validate=True, device="cpu")
+    states = tenv.env_state_from_numpy(_part(data, "scene."))
+    yield request.param, data, config, actor, normalizer, env, states
+    torch.set_num_threads(n)
+
+
+def test_more_scenes_load_and_match_jax(more_scenes):
+    """100 fresh episodes at lambda 1 of each bundle's own config (the
+    clearing env on the tray, r5b's without the object-object knobs); the
+    port's first observation of 8 of them against the JAX package's Pallas
+    render (tolerances as for r5c); the bundle's deterministic action on it
+    against the stored one; one control step with the stored actions
+    against the JAX step: dones and statuses exactly, rewards to 1e-2,
+    gripper coordinates and object positions to 1e-5 m, alive flags
+    exactly."""
+    name, data, config, actor, normalizer, env, states = more_scenes
+    assert states.episode_step.shape == (N_EPISODES,)
+    assert env.reward_spec.table_clearing == (name == "clearing_v2")
+    assert env.sim_params.has_tray == (name == "clearing_v2")
+    assert env.time_horizon == {"r5b": 150, "clearing_v2": 200}[name]
+    assert env.sim_params.oo_pass_stride == {"r5b": 1, "clearing_v2": 2}[name]
+    assert bool(torch.isin(states.sim.objects.obj_type[states.sim.objects.alive],
+                           env.type_ids).all())
+    assert float(states.lift_dist.min()) == pytest.approx(0.1)
+    again = tenv.env_state_to_numpy(states)
+    for k, v in _part(data, "scene.").items():
+        np.testing.assert_array_equal(again[k], v.astype(again[k].dtype), err_msg=k)
+    benv = tenv.BatchedGraspEnv(env, N_CHECK, torch.Generator().manual_seed(0))
+    first = _first(states)
+    obs = benv.observe_batch(first)
+    off = np.abs(obs.numpy() - data["obs"]) > 1e-4
+    assert off.mean() <= 1e-3, f"{off.sum()} observation values differ by more than 1e-4"
+    obs_in = norm_mod.normalize_obs(normalizer, obs) if config.get("normalize") else obs
+    with torch.no_grad():
+        act = sac.act(actor, obs_in, torch.Generator(), deterministic=True)
+    np.testing.assert_allclose(act.numpy(), data["actions"], atol=2e-2, rtol=0)
+    cur = benv.init_curriculum()
+    cur = cur.replace(lam=torch.full_like(cur.lam, 1.0))
+    with torch.no_grad():
+        s1, _, r1, d1, _, _ = benv.step(first, torch.as_tensor(data["actions"]), cur)
+    ref = _part(data, "step.")
+    np.testing.assert_array_equal(d1.numpy(), ref["done"])
+    np.testing.assert_allclose(r1.numpy(), ref["reward"], atol=1e-2, rtol=0)
+    got = tenv.env_state_to_numpy(s1)
+    live = ~ref["done"]
+    np.testing.assert_array_equal(got["status"][live], ref["status"][live])
+    np.testing.assert_array_equal(got["objects.alive"], ref["objects.alive"])
+    for key in ("gripper.q", "objects.pos"):
+        np.testing.assert_allclose(got[key][live], ref[key][live], atol=1e-5, rtol=0, err_msg=key)
+
+
 # ------------------------------------------------------------------ simplified
 
 @pytest.fixture(scope="module")
@@ -383,7 +466,7 @@ def test_simplified_one_control_step_matches_jax(simp_scenes):
 
 if __name__ == "__main__":
     usage = ("usage: JAX_PLATFORMS=cpu python tests/test_torch_eval_scenes.py "
-             "--rebuild [<bundle dir>] [--episodes N] | --compare <bundle dir>")
+             "--rebuild [<bundle dir>] [--episodes N] | --compare <bundle dir> [<scenes npz>]")
     argv = sys.argv[1:]
     n_episodes = N_EPISODES
     if "--episodes" in argv:
@@ -401,6 +484,8 @@ if __name__ == "__main__":
     else:
         cfg = io_utils.load_yaml(os.path.join(argv[1], "config.yaml"))
         path = SCENES_SIMP_VAL if cfg.get("simplified") else SCENES_R5C_VAL
+        if len(argv) > 2:
+            path = os.path.abspath(argv[2])
         differ = same_scenes(argv[1], path)
         print(f"{argv[1]}: validation scenes", "differ in " + ", ".join(differ) if differ
               else f"equal to {os.path.relpath(path, REPO)}")

@@ -158,11 +158,13 @@ def _flagship_config(**tpu):
 
 
 @pytest.mark.parametrize("tpu,item", [(dict(sharded=True), "item 8"),
-                                      (dict(update_batch_scale=2), "item 6")],
+                                      (dict(update_batch_scale=3), "must divide")],
                          ids=["sharded", "update_batch_scale"])
 def test_trainer_refuses_what_the_port_cannot_honour(tpu, item):
     """A config the port would otherwise run differently from what it asks
-    is refused, with the ROADMAP item that will port it."""
+    is refused: `tpu.sharded`, with the ROADMAP item that will port it, and
+    an update batch scale that does not divide the updates per step (128),
+    as the JAX trainer refuses it (trainer.py:252-255)."""
     from deep_rl_grasping_tpu_torch.training.trainer import Trainer
 
     with pytest.raises(ValueError, match=item):

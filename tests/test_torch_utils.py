@@ -142,7 +142,8 @@ print(" ".join(mods))
     assert {pkg + m for m in ("algos.replay", "algos.sac", "envs.scripted", "envs.curriculum",
                               "training.callbacks", "training.trainer", "training.train",
                               "utils.tb_events", "models.networks", "algos.ddpg", "algos.ppo",
-                              "algos.trpo", "training.onpolicy")} <= mods
+                              "algos.trpo", "training.onpolicy", "models.autoencoder",
+                              "training.collect_dataset", "training.train_encoder")} <= mods
 
 
 def test_chip_smoke_refuses_without_a_card():
