@@ -106,8 +106,28 @@ just before and read just after:
   envs; `collect_encoder`), `train_encoder train` of the full-width
   autoencoder (32-32-32 filters, 100 latents, batch 128) for AE_EPOCHS
   epochs and `test` (`train_ae`), then the trained encoder loaded through
-  the trainer's `_maybe_load_encoder` and one latent env step of
-  configs/sac_encoder_flagship.yaml with it (`ae_latent_step`).
+  `models/autoencoder.py` `encoder_for_config` and one latent env step of
+  configs/sac_encoder_flagship.yaml with it (`ae_latent_step`);
+* the data-parallel trainer (parallel/train_dp.py) on
+  configs/sac_simplified_sharded_quality.yaml at full width (256 global
+  envs, full_r4 latents, SAC [128, 128], 32 updates of batch 128 per
+  iteration, a 25% demo tail), cut by TRAIN_CUTS: `train` on every card
+  over NCCL (one rank on one card) and `run --model` (`sharded_w1`,
+  `run_model_sharded_w1`; ms per all-reduce per update and its share of
+  the update); a one-rank `ShardedTrainer` against the plain `Trainer` on
+  configs/sac_simplified_singlechip_quality.yaml, the same config with
+  `tpu.sharded` false, same seed and initial learner, VS_SINGLE_ITERATIONS
+  iterations (`sharded_w1_vs_single`: the learners equal bit for bit);
+  two gloo ranks on cuda:0 with 128 envs each through
+  `train_dp.launch_train` (`sharded_w2`: every learner tensor and the
+  curriculum equal on both ranks bit for bit, env states and generators
+  apart, the demo frames split and their counts summed, frames = world x
+  step), rank 0's checkpoint through `run --model` and resumed into a run
+  on every card (`run_model_sharded_w2`, `resume_sharded_w1`); one SAC
+  update of the two ranks on the halves of a batch against one update on
+  the whole batch (`allreduce_update`);
+* `tools/debug_scene.py`: the scripted agent in the gym adapter for
+  DEBUG_SCENE_STEPS steps on the card, one PNG per step (`debug_scene`).
 
 Each phase prints one JSON line with its elapsed seconds. The last three
 lines are the card's name and power limit (nvidia-smi), one JSON object
@@ -202,6 +222,19 @@ BATCHED_TRAIN_CONFIG = os.path.join("configs", "sac_simplified_batched_quality.y
 AE_COLLECT_CONFIG = os.path.join("configs", "sac_full_flagship.yaml")
 AE_IMAGES = (2048, 256)
 AE_EPOCHS = 3
+# The data-parallel trainer (tpu.sharded): the quality config (256 global
+# envs, full_r4 latents, SAC [128, 128], 32 updates of batch 128 per
+# iteration, a 25% demo tail) and its one-device twin, which differs only
+# in tpu.sharded. One card: world 1 over NCCL through `train`; two gloo
+# ranks on cuda:0 through the library entry (parallel/train_dp.py).
+SHARDED_CONFIG = os.path.join("configs", "sac_simplified_sharded_quality.yaml")
+SINGLE_CONFIG = os.path.join("configs", "sac_simplified_singlechip_quality.yaml")
+VS_SINGLE_ITERATIONS = 4
+W2_DEVICES = ("cuda:0", "cuda:0")
+W2_TIMEOUT = 600
+W2_RESUME_FRAMES = 1024  # the world-1 run resumed from the two ranks' checkpoint
+DEBUG_SCENE_CONFIG = os.path.join("configs", "gripper_grasp.yaml")
+DEBUG_SCENE_STEPS = 4
 # the losses each learner's training run must log as finite numbers
 LOSS_KEYS = {"SAC": ("critic_loss", "actor_loss", "bc_loss", "alpha_loss", "q_target_mean",
                      "entropy"),
@@ -875,6 +908,10 @@ def train_and_run(phase, config_path, raster_key, run_phase, algo="SAC", root=No
         (env_s, n_iter), (upd_s, n_upd_iter) = tr["phase_seconds"]["env"], \
             tr["phase_seconds"]["update"]
         n_updates = tr["updates"]
+        ar_s, n_ar = tr["phase_seconds"]["allreduce"]
+        allreduce = dict(world=tr["world"], allreduce_calls=n_ar,
+                         ms_allreduce_per_update=ar_s / max(n_updates, 1) * 1e3,
+                         allreduce_share_of_update=ar_s / upd_s) if n_ar else {}
         losses = {k: tr["metrics"].get(k) for k in loss_keys}
         frames_per_iter = shape["frames_per_iteration"] if on_policy else tpu["num_envs"]
         steps_per_iter = frames_per_iter // tpu["num_envs"]
@@ -885,7 +922,7 @@ def train_and_run(phase, config_path, raster_key, run_phase, algo="SAC", root=No
             end_to_end_frames_per_s=tr["frames"] / tr["wall_seconds"],
             ms_per_env_step=env_s / (n_iter * steps_per_iter) * 1e3,
             ms_per_update=upd_s / max(n_updates, 1) * 1e3,
-            ms_updates_per_iteration=upd_s / max(n_upd_iter, 1) * 1e3,
+            ms_updates_per_iteration=upd_s / max(n_upd_iter, 1) * 1e3, **allreduce,
             curriculum_lambda=tr["curriculum_lambda"], success_rate=tr["success_rate"],
             episodes=tr["episodes"], losses=losses, eval=tr["eval"],
             replay_rows=tr["replay_rows"], rows_off_priority_1=tr["rows_off_priority_1"],
@@ -895,6 +932,8 @@ def train_and_run(phase, config_path, raster_key, run_phase, algo="SAC", root=No
                 or n_updates != n_iter * updates_per_iter
                 or not all(v is not None and np.isfinite(v) for v in losses.values())):
             raise RuntimeError(f"training run ({phase}) is malformed: {tr}")
+        if tpu.get("sharded") and (tr["world"] != torch.cuda.device_count() or not n_ar):
+            raise RuntimeError(f"the sharded run ({phase}) did not run on every card: {tr}")
         if prioritized and not tr["rows_off_priority_1"]:
             raise RuntimeError(f"prioritized updates of {phase} changed no priority: {tr}")
         if min(launches["solver"], launches[raster_key]) <= 0:
@@ -923,6 +962,7 @@ def export_and_compare(run, out, dev, phase_suffix=""):
 
     from deep_rl_grasping_tpu_torch.algos.normalize import normalize_obs
     from deep_rl_grasping_tpu_torch.envs.grasp_env import BatchedGraspEnv, GraspEnv
+    from deep_rl_grasping_tpu_torch.models.autoencoder import encoder_for_config
     from deep_rl_grasping_tpu_torch.tools import export_policy
     from deep_rl_grasping_tpu_torch.training import train, trainer
 
@@ -936,7 +976,7 @@ def export_and_compare(run, out, dev, phase_suffix=""):
     _, pol_model, norm_model = train.load_checkpoint_actor(run, dev)
     algo = info["algo"]
     env = GraspEnv(config, evaluate=True, validate=True, device=dev,
-                   encoder=trainer._maybe_load_encoder(config, dev))
+                   encoder=encoder_for_config(config, dev))
     trainer.set_action_interface(env, algo, config)
     states = train.load_scenes(SIMP_SCENES, dev)
     obs = BatchedGraspEnv(env, EPISODES, torch.Generator(device=dev)).observe_batch(states)
@@ -1058,14 +1098,14 @@ def encoder_check(st, dev):
     import torch
 
     from deep_rl_grasping_tpu_torch.envs.grasp_env import GraspEnv
+    from deep_rl_grasping_tpu_torch.models.autoencoder import encoder_for_config
     from deep_rl_grasping_tpu_torch.ops import raster_cuda
     from deep_rl_grasping_tpu_torch.render import raycast
-    from deep_rl_grasping_tpu_torch.training import trainer
     from deep_rl_grasping_tpu_torch.utils import config as cfg_util
 
     config = cfg_util.load_config(os.path.join(ENCODER_BUNDLE, "config.yaml"))
-    enc = trainer._maybe_load_encoder(config, dev)
-    enc_cpu = trainer._maybe_load_encoder(config, "cpu")
+    enc = encoder_for_config(config, dev)
+    enc_cpu = encoder_for_config(config, "cpu")
     env = GraspEnv(config, evaluate=True, validate=True, device=dev, encoder=enc)
     cam_pos, cam_R = raycast.camera_pose_from_gripper(st.sim.gripper.q, st.cam_t, st.cam_R)
     args = (st.sim, env.sim_params, cam_pos, cam_R, st.intrinsics, env.im_h, env.im_w,
@@ -1188,8 +1228,9 @@ def encoder_training(dev, root):
     import torch
 
     from deep_rl_grasping_tpu_torch.envs.grasp_env import BatchedGraspEnv, GraspEnv
+    from deep_rl_grasping_tpu_torch.models.autoencoder import encoder_for_config
     from deep_rl_grasping_tpu_torch.ops import raster_cuda, solver_cuda
-    from deep_rl_grasping_tpu_torch.training import collect_dataset, train_encoder, trainer
+    from deep_rl_grasping_tpu_torch.training import collect_dataset, train_encoder
     from deep_rl_grasping_tpu_torch.utils import config as cfg_util
     from deep_rl_grasping_tpu_torch.utils import io_utils
 
@@ -1233,7 +1274,7 @@ def encoder_training(dev, root):
 
     cfg = cfg_util.load_config(ENCODER_TRAIN_CONFIG)
     cfg["sensor"]["encoder_dir"] = enc_dir
-    enc = trainer._maybe_load_encoder(cfg, dev)
+    enc = encoder_for_config(cfg, dev)
     env = GraspEnv(cfg, device=dev, encoder=enc)
     B = int(cfg["tpu"]["num_envs"])
     benv = BatchedGraspEnv(env, B, torch.Generator(device=dev).manual_seed(0))
@@ -1254,6 +1295,302 @@ def encoder_training(dev, root):
         raise RuntimeError(f"a latent env step with the trained encoder is malformed: "
                            f"{tuple(obs2.shape)}, {step_launches}")
     return {"collect_encoder": collect_launches, "ae_latent_step": step_launches}
+
+
+def _cut_sharded(path):
+    """A quality config cut as TRAIN_CUTS cuts the SAC runs (the demo ring
+    keeps the capacity the uncut config gives it)."""
+    from deep_rl_grasping_tpu_torch.utils import config as cfg_util
+
+    cfg = cfg_util.load_config(path)
+    cfg["tpu"].setdefault("demo_capacity", cfg["tpu"]["demo_frames"])
+    for (block, key), value in TRAIN_CUTS.items():
+        cfg["SAC" if block == "ALGO" else block][key] = value
+    return cfg
+
+
+def _max_abs_diff(a, b):
+    """The largest |a - b| over the floating tensors of two payloads, and
+    whether every leaf is equal."""
+    import torch
+
+    if isinstance(a, dict):
+        pairs = [_max_abs_diff(a[k], b[k]) for k in a]
+    elif isinstance(a, (list, tuple)):
+        pairs = [_max_abs_diff(x, y) for x, y in zip(a, b)]
+    elif isinstance(a, torch.Tensor):
+        b = b.to(a.device)
+        d = float((a.double() - b.double()).abs().max()) if a.is_floating_point() and a.numel() \
+            else 0.0
+        return d, torch.equal(a, b)
+    else:
+        return 0.0, a == b
+    return max((p[0] for p in pairs), default=0.0), all(p[1] for p in pairs)
+
+
+def sharded_vs_single(dev):
+    """`sharded_w1_vs_single`: a one-rank `ShardedTrainer` (NCCL) and the
+    plain `Trainer` from the same seed and initial learner, each seeding
+    TRAIN_CUTS' demo frames and running VS_SINGLE_ITERATIONS iterations at
+    full width (the sharded quality config and its one-device twin). The
+    learners must be equal bit for bit, as on the CPU
+    (tests/test_torch_sharded.py). Returns the launch counts."""
+    import torch
+
+    from deep_rl_grasping_tpu_torch.ops import raster_cuda, solver_cuda
+    from deep_rl_grasping_tpu_torch.parallel import train_dp
+    from deep_rl_grasping_tpu_torch.training import trainer
+
+    cfgs = {"single": _cut_sharded(SINGLE_CONFIG), "sharded": _cut_sharded(SHARDED_CONFIG)}
+    twin = copy.deepcopy(cfgs["sharded"])
+    twin["tpu"]["sharded"] = False
+    if twin != cfgs["single"]:
+        raise RuntimeError(f"{SINGLE_CONFIG} differs from {SHARDED_CONFIG} in more than "
+                           "tpu.sharded")
+    demo = cfgs["single"]["tpu"]["demo_frames"]
+    runs = {}
+    reset_counts(solver_cuda, raster_cuda)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as store, \
+            train_dp.process_group("nccl", 1, 0, store):
+        dp = train_dp.DataParallel(dev)
+        for key in ("single", "sharded"):
+            torch.manual_seed(0)  # the learner's initial weights
+            t = (trainer.Trainer(cfgs[key], "SAC", dev, seed=0) if key == "single"
+                 else train_dp.make_sharded_trainer(cfgs[key], dp, "SAC", seed=0))
+            s = t.init_state()
+            s, n_done, _ = t.seed_demos(s, demo)
+            s, metrics = t.train_chunk(s, VS_SINGLE_ITERATIONS)
+            runs[key] = (t.algo.state_dict(), {k: float(v) for k, v in metrics.items()},
+                         t.algo.step, t.clock.totals(), n_done, float(s.curriculum.sr_mean))
+    launches = read_counts(solver_cuda, raster_cuda)
+    (sd_a, m_a, up_a, ph_a, nd_a, _), (sd_b, m_b, up_b, ph_b, nd_b, _) = runs["single"], \
+        runs["sharded"]
+    diff, equal = _max_abs_diff(sd_a, sd_b)
+    updates = VS_SINGLE_ITERATIONS * int(cfgs["single"]["tpu"]["updates_per_step"])
+    log("sharded_w1_vs_single", single=SINGLE_CONFIG, sharded=SHARDED_CONFIG,
+        iterations=VS_SINGLE_ITERATIONS, updates=[up_a, up_b], demo_episodes=[nd_a, nd_b],
+        learner_max_abs_diff=diff, bit_equal=equal,
+        metrics_equal=m_a == m_b, critic_loss=[m_a["critic_loss"], m_b["critic_loss"]],
+        ms_allreduce_per_update=ph_b["allreduce"][0] / max(up_b, 1) * 1e3,
+        update_ms=[ph_a["update"][0] / max(up_a, 1) * 1e3, ph_b["update"][0] / max(up_b, 1) * 1e3],
+        launches=launches)
+    if up_a != updates or up_b != updates or not equal:
+        raise RuntimeError(f"the one-rank sharded trainer departs from the plain one: max abs "
+                           f"diff {diff} after {up_a} / {up_b} updates")
+    if min(launches["solver"], launches["raster"]) <= 0:
+        raise RuntimeError(f"a kernel of the sharded_w1_vs_single path was not launched: "
+                           f"{launches}")
+    return launches
+
+
+def sharded_w2(dev, root):
+    """`sharded_w2` (see the module docstring) in the directory `root`, then
+    `run --model` on rank 0's checkpoint and its resume into a run on every
+    card (`resume_sharded_w1`). Returns the launch counts of both ranks
+    (summed) and of the resumed run."""
+    import numpy as np
+    import torch
+
+    from deep_rl_grasping_tpu_torch.ops import raster_cuda, solver_cuda
+    from deep_rl_grasping_tpu_torch.parallel import train_dp
+    from deep_rl_grasping_tpu_torch.training import train
+    from deep_rl_grasping_tpu_torch.utils import io_utils
+
+    cfg = _cut_sharded(SHARDED_CONFIG)
+    cfg_path, run, run1 = (os.path.join(root, n) for n in ("config.yaml", "run", "resumed"))
+    io_utils.save_yaml(cfg, cfg_path)
+    argv = ["train", "--config", cfg_path, "--algo", "SAC", "--model_dir", run, "--seed", "0"]
+    t0 = time.perf_counter()
+    r0, r1 = train_dp.launch_train(argv, len(W2_DEVICES), "gloo", list(W2_DEVICES),
+                                   timeout=W2_TIMEOUT)
+    wall = time.perf_counter() - t0
+    res = r0["result"]
+    total = TRAIN_CUTS[("ALGO", "total_timesteps")]
+    per_rank = cfg["tpu"]["num_envs"] // 2
+    demo_rows = cfg["tpu"]["demo_frames"] // 2 // per_rank * per_rank
+    (env_s, n_iter), (upd_s, _), (ar_s, n_ar) = (res["phase_seconds"][k] for k in
+                                                  ("env", "update", "allreduce"))
+    checks = dict(
+        learner_bit_equal=_same_state(r0["learner"], r1["learner"]),
+        curriculum_equal=_same_state(r0["curriculum"], r1["curriculum"]),
+        env_states_differ=not torch.equal(r0["env_states"]["objects.pos"],
+                                          r1["env_states"]["objects.pos"]),
+        generators_differ=all(not torch.equal(r0["generators"][k], r1["generators"][k])
+                              for k in r0["generators"]),
+        frames_are_world_x_step=all(r["result"]["frames"] == 2 * r["step"] == total
+                                    for r in (r0, r1)),
+        demo_split=all(r["result"]["replay_rows"] == demo_rows + r["step"] for r in (r0, r1)),
+        demo_counts_summed=res["demo"]["episodes"] == r0["demo_local"][0] + r1["demo_local"][0])
+    launches = {k: r0["launches"][k] + r1["launches"][k] for k in r0["launches"]}
+    log("sharded_w2", config=SHARDED_CONFIG, devices=list(W2_DEVICES), backend="gloo",
+        per_rank_envs=[r0["num_envs"], r1["num_envs"]], frames=res["frames"],
+        steps=[r0["step"], r1["step"]], done=res["done"], wall_seconds=wall,
+        rank0_wall_seconds=res["wall_seconds"], updates=res["updates"],
+        ms_per_env_step=env_s / n_iter * 1e3, ms_per_update=upd_s / max(res["updates"], 1) * 1e3,
+        ms_allreduce_per_update=ar_s / max(res["updates"], 1) * 1e3, allreduce_calls=n_ar,
+        allreduce_share_of_update=ar_s / upd_s,
+        iteration_frames_per_s=2 * n_iter * per_rank / (env_s + upd_s),
+        end_to_end_frames_per_s=res["frames"] / res["wall_seconds"],
+        curriculum_lambda=res["curriculum_lambda"], success_rate=res["success_rate"],
+        episodes=res["episodes"], demo=res["demo"],
+        demo_local=[r0["demo_local"], r1["demo_local"]],
+        losses={k: res["metrics"].get(k) for k in LOSS_KEYS["SAC"]},
+        max_memory_allocated_gib=[r0["max_memory_allocated_gib"], r1["max_memory_allocated_gib"]],
+        launches_by_rank=[r0["launches"], r1["launches"]], checkpoint_step=res["checkpoint_step"],
+        **checks)
+    if not all(checks.values()) or not res["done"]:
+        raise RuntimeError(f"the two ranks are malformed: {checks}, {res}")
+    if not all(np.isfinite(res["metrics"][k]) for k in LOSS_KEYS["SAC"]):
+        raise RuntimeError(f"the two ranks' losses are not finite: {res['metrics']}")
+    if min(min(r["launches"]["solver"], r["launches"]["raster"]) for r in (r0, r1)) <= 0:
+        raise RuntimeError(f"a kernel of the sharded_w2 path was not launched: "
+                           f"{r0['launches']}, {r1['launches']}")
+
+    reset_counts(solver_cuda, raster_cuda)
+    ev = train.main(["run", "--model", run, "--episodes", str(EPISODES)])
+    log("run_model_sharded_w2", episodes=ev["episodes"], success_rate=ev["success_rate"],
+        mean_return=ev["mean_return"], wall_seconds=ev["wall_seconds"],
+        launches=read_counts(solver_cuda, raster_cuda))
+    if ev["episodes"] != EPISODES or not np.isfinite(ev["mean_return"]):
+        raise RuntimeError(f"run --model of rank 0's checkpoint is malformed: {ev}")
+
+    reset_counts(solver_cuda, raster_cuda)
+    tr = train.main(["train", "--config", cfg_path, "--algo", "SAC", "--model_dir", run1,
+                     "--load_dir", run, "--timestep", str(total + W2_RESUME_FRAMES),
+                     "--seed", "0"])
+    resume_launches = read_counts(solver_cuda, raster_cuda)
+    more = W2_RESUME_FRAMES // cfg["tpu"]["num_envs"] * cfg["tpu"]["updates_per_step"]
+    log("resume_sharded_w1", load_dir="rank 0's checkpoint of sharded_w2",
+        resume_frames=tr["resume_frames"], frames=tr["frames"], world=tr["world"],
+        done=tr["done"], updates=tr["updates"], wall_seconds=tr["wall_seconds"],
+        launches=resume_launches)
+    if (tr["resume_frames"] != total or tr["frames"] != total + W2_RESUME_FRAMES
+            or not tr["done"] or tr["world"] != torch.cuda.device_count()
+            or tr["updates"] != res["updates"] + more
+            or min(resume_launches["solver"], resume_launches["raster"]) <= 0):
+        raise RuntimeError(f"the resume of the two ranks' checkpoint is malformed: {tr}, "
+                           f"{resume_launches}")
+    return {"sharded_w2": launches, "resume_sharded_w1": resume_launches}
+
+
+def _float32_sac(payload, device):
+    """The SAC learner of the sharded config's shapes with float32
+    networks, its initial weights drawn from seed 0."""
+    import torch
+
+    from deep_rl_grasping_tpu_torch.algos.sac import SAC
+    from deep_rl_grasping_tpu_torch.models import networks
+
+    networks.CDTYPE = torch.float32
+    torch.manual_seed(0)
+    return SAC(payload["obs_shape"], payload["action_dim"], payload["config"], device)
+
+
+def _allreduce_worker(rank, device, payload):
+    """One rank of `allreduce_update`: one update on this rank's half of the
+    batch, the gradients averaged over the ranks."""
+    import torch
+
+    from deep_rl_grasping_tpu_torch.parallel import train_dp
+
+    dp = train_dp.DataParallel(device)
+    algo = _float32_sac(payload, device)
+    train_dp.broadcast_learner(dp, algo)
+    algo.grad_mean = dp.mean
+    half = slice(rank * payload["rows"], (rank + 1) * payload["rows"])
+    batch = {k: torch.as_tensor(v[half], device=device) for k, v in payload["batch"].items()}
+    algo.update(batch, noise=tuple(torch.as_tensor(n[half], device=device)
+                                   for n in payload["noise"]))
+    return {k: v.detach().cpu() for k, v in _sac_tensors(algo).items()}
+
+
+def _sac_tensors(algo):
+    out = {"log_alpha": algo.log_alpha.detach()}
+    for net in ("actor", "critic", "target_critic"):
+        out.update({f"{net}.{k}": v for k, v in getattr(algo, net).state_dict().items()})
+    return out
+
+
+def allreduce_update(dev):
+    """`allreduce_update`: one SAC update of two gloo ranks on cuda:0, each
+    on its half of a batch of twice the config's batch size, against one
+    update on the whole batch in this process; same initial weights and
+    normal draws, float32 networks. The two ranks must agree bit for bit
+    and hold the one-rank update to the tolerance of
+    tests/test_torch_algos.py::test_sac_update_matches_jax: within 1e-6 on
+    all but 0.5% of the parameters and within 2 x lr on all (Adam's first
+    step is lr * g / (|g| + eps): a gradient within rounding of zero can
+    flip its sign), log_alpha within 1e-7."""
+    import numpy as np
+    import torch
+
+    from deep_rl_grasping_tpu_torch.envs.actuator import ActuatorSpec
+    from deep_rl_grasping_tpu_torch.envs.grasp_env import observation_shape
+    from deep_rl_grasping_tpu_torch.models import networks
+    from deep_rl_grasping_tpu_torch.parallel import train_dp
+    from deep_rl_grasping_tpu_torch.utils import config as cfg_util
+
+    cfg = cfg_util.load_config(SHARDED_CONFIG)
+    n = int(cfg["SAC"]["batch_size"])
+    obs_shape, adim = tuple(observation_shape(cfg)), ActuatorSpec.from_config(cfg).action_dim
+    rng = np.random.default_rng(0)
+    done = rng.random(2 * n) < 0.2
+    batch = dict(obs=rng.normal(size=(2 * n,) + obs_shape).astype(np.float32),
+                 next_obs=rng.normal(size=(2 * n,) + obs_shape).astype(np.float32),
+                 action=rng.uniform(-1, 1, (2 * n, adim)).astype(np.float32),
+                 reward=rng.normal(0, 0.5, 2 * n).astype(np.float32), done=done,
+                 discount=(0.99 * ~done).astype(np.float32),
+                 weight=np.ones(2 * n, np.float32))
+    noise = [rng.standard_normal((2 * n, adim)).astype(np.float32) for _ in range(2)]
+    payload = dict(obs_shape=obs_shape, action_dim=adim, config=cfg, rows=n, batch=batch,
+                   noise=noise)
+    t0 = time.perf_counter()
+    ranks = train_dp.start(_allreduce_worker, 2, "gloo", list(W2_DEVICES), payload).join(
+        W2_TIMEOUT)
+    wall = time.perf_counter() - t0
+    cdtype = networks.CDTYPE
+    try:
+        ref = _float32_sac(payload, dev)
+        ref.update({k: torch.as_tensor(v, device=dev) for k, v in batch.items()},
+                   noise=tuple(torch.as_tensor(x, device=dev) for x in noise))
+        want = {k: v.detach().cpu() for k, v in _sac_tensors(ref).items()}
+    finally:
+        networks.CDTYPE = cdtype
+    lr = float(cfg["SAC"]["step_size"])
+    ranks_equal = all(torch.equal(ranks[0][k], ranks[1][k]) for k in want)
+    diffs = torch.cat([(ranks[0][k] - want[k]).abs().reshape(-1) for k in want
+                       if k != "log_alpha"])
+    alpha_diff = float((ranks[0]["log_alpha"] - want["log_alpha"]).abs())
+    log("allreduce_update", devices=list(W2_DEVICES), backend="gloo", rows_per_rank=n,
+        obs_shape=list(obs_shape), action_dim=adim, parameters=int(diffs.numel()),
+        ranks_bit_equal=ranks_equal, max_abs_diff=float(diffs.max()),
+        frac_over_1e_6=float((diffs > 1e-6).double().mean()), log_alpha_diff=alpha_diff,
+        tolerance=dict(max=2 * lr + 1e-6, frac_over_1e_6=5e-3, log_alpha=1e-7),
+        wall_seconds=wall)
+    if (not ranks_equal or float(diffs.max()) > 2 * lr + 1e-6
+            or float((diffs > 1e-6).double().mean()) > 5e-3 or alpha_diff > 1e-7):
+        raise RuntimeError("the two ranks' update departs from the one-rank update on the "
+                           "whole batch")
+
+
+def debug_scene_phase(root):
+    """`debug_scene`: DEBUG_SCENE_STEPS steps of the scripted agent in the
+    gym adapter on the card, one PNG per step into `root`. Returns the
+    launch counts."""
+    from deep_rl_grasping_tpu_torch.ops import raster_cuda, solver_cuda
+    from deep_rl_grasping_tpu_torch.tools import debug_scene
+
+    reset_counts(solver_cuda, raster_cuda)
+    frames = debug_scene.main(["--config", DEBUG_SCENE_CONFIG, "--agent", "scripted",
+                               "--steps", str(DEBUG_SCENE_STEPS), "--out", root])
+    launches = read_counts(solver_cuda, raster_cuda)
+    shapes = [list(debug_scene.read_png(f).shape) for f in frames]
+    log("debug_scene", config=DEBUG_SCENE_CONFIG, frames=len(frames), shapes=shapes,
+        bytes=[os.path.getsize(f) for f in frames], launches=launches)
+    if (len(frames) != DEBUG_SCENE_STEPS or any(sh[0] * 3 != sh[1] for sh in shapes)
+            or min(launches["solver"], launches["raster_shade"]) <= 0):
+        raise RuntimeError(f"debug_scene is malformed: {shapes}, {launches}")
+    return launches
 
 
 def kernel_entry(name, source, replaces, launches, launches_by_path, max_abs_err, timing,
@@ -1417,8 +1754,8 @@ def main():
     # at the eval shape (the BDQ bundle's config, B=100) and the train shape
     # (configs/bdq_simplified.yaml, B=128); their device ms per control
     # step beside the full task's one launch at the same B
-    from deep_rl_grasping_tpu_torch.training.trainer import (_maybe_load_encoder,
-                                                             set_action_interface)
+    from deep_rl_grasping_tpu_torch.models.autoencoder import encoder_for_config
+    from deep_rl_grasping_tpu_torch.training.trainer import set_action_interface
 
     simp = {}
     for path, cfg_path, evaluate, full in (
@@ -1426,7 +1763,7 @@ def main():
             ("train_simplified", BDQ_TRAIN_CONFIG, False, checks["train"])):
         scfg = cfg_util.load_config(cfg_path)
         senv = GraspEnv(scfg, evaluate=evaluate, validate=evaluate, device=dev,
-                        encoder=_maybe_load_encoder(scfg, dev))
+                        encoder=encoder_for_config(scfg, dev))
         set_action_interface(senv, "BDQ", scfg)
         B = EPISODES if evaluate else int(scfg["tpu"]["num_envs"])
         simp[B] = simplified_solver_checks(path, senv, B, full["solver"][0])
@@ -1520,6 +1857,22 @@ def main():
     # with the trained encoder
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ae_") as ae_root:
         new_launches.update(encoder_training(dev, ae_root))
+
+    # ---- 19. the data-parallel trainer: `train` of the sharded quality
+    # config on every card (NCCL), then `run --model`; one rank against the
+    # plain trainer; two gloo ranks on cuda:0, their checkpoint through
+    # `run --model` and resumed on every card; one two-rank SAC update
+    # against the one-rank update on the whole batch
+    new_launches["sharded_w1"] = train_and_run("sharded_w1", SHARDED_CONFIG, "raster",
+                                               "run_model_sharded_w1")
+    new_launches["sharded_w1_vs_single"] = sharded_vs_single(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_w2_") as w2_root:
+        new_launches.update(sharded_w2(dev, w2_root))
+    allreduce_update(dev)
+
+    # ---- 20. debug_scene: the gym adapter and the scripted agent on the card
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scene_") as scene_root:
+        new_launches["debug_scene"] = debug_scene_phase(scene_root)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)

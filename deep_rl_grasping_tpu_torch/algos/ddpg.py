@@ -85,6 +85,9 @@ class DDPG:
         self.target_actor = copy.deepcopy(self.actor).requires_grad_(False)
         self.target_critic = copy.deepcopy(self.critic).requires_grad_(False)
         self.step = 0
+        # data-parallel: maps an optimizer step's gradients to their mean
+        # over ranks (ddpg.py:106-109); set by parallel/train_dp.py
+        self.grad_mean = None
         self.reset_optimizers()
 
     def reset_optimizers(self):
@@ -104,9 +107,11 @@ class DDPG:
             noise = torch.randn(a.shape, generator=gen, device=a.device)
         return torch.clamp(a + noise * self.noise_sigma, -1.0, 1.0)
 
-    @staticmethod
-    def _step(opt, params, loss):
-        for p, g in zip(params, torch.autograd.grad(loss, params)):
+    def _step(self, opt, params, loss):
+        grads = torch.autograd.grad(loss, params)
+        if self.grad_mean is not None:
+            grads = self.grad_mean(grads)
+        for p, g in zip(params, grads):
             p.grad = g
         opt.step()
 

@@ -59,6 +59,9 @@ class QLearner:
         self.net = self._build(c).to(self.device)
         self.target_net = copy.deepcopy(self.net).requires_grad_(False)
         self.step = 0
+        # data-parallel: maps the gradients to their mean over ranks
+        # (dqn.py:96-97, bdq.py:122-123); set by parallel/train_dp.py
+        self.grad_mean = None
         self.reset_optimizer()
 
     def reset_optimizer(self):
@@ -96,7 +99,10 @@ class QLearner:
         q_sa, target_b = self._q_taken(self.net(batch["obs"]), batch["action"], target)
         weight = batch["weight"].reshape((-1,) + (1,) * (q_sa.dim() - 1))
         loss = torch.mean(weight * F.huber_loss(q_sa, target_b, reduction="none", delta=1.0))
-        for p, g in zip(params, torch.autograd.grad(loss, params)):
+        grads = torch.autograd.grad(loss, params)
+        if self.grad_mean is not None:
+            grads = self.grad_mean(grads)
+        for p, g in zip(params, grads):
             p.grad = g
         self.opt.step()
         td_abs = (q_sa.detach() - target_b).abs()

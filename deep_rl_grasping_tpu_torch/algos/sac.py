@@ -97,6 +97,9 @@ class SAC:
         self.target_critic = copy.deepcopy(self.critic).requires_grad_(False)
         self.log_alpha = torch.zeros((), device=self.device, requires_grad=True)
         self.step = 0
+        # data-parallel: maps an optimizer step's gradients to their mean
+        # over ranks (sac.py:163-166); set by parallel/train_dp.py
+        self.grad_mean = None
         decay_steps = int(c.get("lr_decay_steps", 0) or 0)
         if decay_steps > 0:
             self.lr_at = linear_schedule(self.lr, self.lr * float(c.get("lr_final_scale", 0.1)),
@@ -115,6 +118,8 @@ class SAC:
     # ------------------------------------------------------------------ update
 
     def _apply(self, opt, params, grads, lr):
+        if self.grad_mean is not None:
+            grads = self.grad_mean(grads)
         for p, g in zip(params, grads):
             p.grad = g
         for group in opt.param_groups:

@@ -425,6 +425,18 @@ class GraspEnv:
         return next_state, reward, done, info
 
 
+def fold_episodes(spec: curr.CurriculumSpec, curriculum: curr.CurriculumState, done_mask,
+                  succ_mask, dp=None):
+    """The curriculum window after one step's finished episodes. With `dp`
+    (a data-parallel rank's collectives, parallel/train_dp.py) every
+    rank's masks are gathered in rank order first, so that every rank folds
+    the same episode stream (grasp_env.py:633-638)."""
+    if dp is not None:
+        masks = dp.gather(torch.stack([done_mask, succ_mask], -1).to(torch.float32))
+        done_mask, succ_mask = masks[:, 0] > 0.5, masks[:, 1] > 0.5
+    return curr.update(spec, curriculum, done_mask, succ_mask)
+
+
 class BatchedGraspEnv:
     """A batch of envs with the kernel-routed step (grasp_env.py:582-642)
     and the shared curriculum window. `generator` draws the auto-reset
@@ -434,6 +446,9 @@ class BatchedGraspEnv:
         self.env = env
         self.num_envs = num_envs
         self.gen = generator
+        # data-parallel: the rank's collectives (parallel/train_dp.py), set
+        # by its trainer; the curriculum then folds every rank's episodes
+        self.dp = None
 
     def init_curriculum(self):
         return curr.CurriculumState.init(self.env.curriculum_spec, self.env.evaluate,
@@ -479,11 +494,11 @@ class BatchedGraspEnv:
         Returns (states, obs, rewards, dones, infos, curriculum) with VecEnv
         semantics (a finished env's obs already belongs to its next
         episode) and the curriculum window updated with the finished
-        episodes (single device: no all-gather)."""
+        episodes (`fold_episodes`: every rank's with `dp`)."""
         env = self.env
         stepped, reward, status = self.step_core(states, actions)
         next_states, rewards, dones, infos = env._finalize_step(
             self.gen, states, stepped, reward, status, float(curriculum.lam))
-        curriculum = curr.update(env.curriculum_spec, curriculum, dones,
-                                 dones & infos["is_success"])
+        curriculum = fold_episodes(env.curriculum_spec, curriculum, dones,
+                                   dones & infos["is_success"], self.dp)
         return next_states, self.observe_batch(next_states), rewards, dones, infos, curriculum

@@ -34,13 +34,33 @@ truncated at two standard deviations, biases zero), drawn from an explicit
 from __future__ import annotations
 
 import math
+import os
+import re
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deep_rl_grasping_tpu_torch.utils import config as cfg_util
+from deep_rl_grasping_tpu_torch.utils import io_utils
+
 CDTYPE = torch.bfloat16
+
+# the JAX package's DEFAULT_ENCODER_CONFIG (:33), used when a config file
+# or an encoder directory's config.yaml is missing
+DEFAULT_ENCODER_CONFIG = {
+    "network": [
+        {"filters": 32, "kernel_size": 7, "strides": 2},
+        {"filters": 32, "kernel_size": 5, "strides": 2},
+        {"filters": 32, "kernel_size": 3, "strides": 2},
+    ],
+    "encoding_dim": 100,
+    "learning_rate": 0.0002,
+    "batch_size": 128,
+    "epochs": 120,
+}
 
 
 def same_pads(n, k, s):
@@ -182,3 +202,98 @@ def ae_train_step(model: nn.Module, opt: torch.optim.Optimizer, batch):
     loss.backward()
     opt.step()
     return loss.detach()
+
+
+def load_encoder_config(path):
+    if path and os.path.exists(cfg_util.resolve_path(path)):
+        return io_utils.load_yaml(cfg_util.resolve_path(path))
+    return dict(DEFAULT_ENCODER_CONFIG)
+
+
+def build_model(enc_cfg) -> ConvEncoder:
+    """The encoder half of `SimpleAutoEncoder.from_config` (autoencoder.py:82)
+    for 64 x 64 images; the leaky-ReLU slope defaults to 0.1, as no shipped
+    config sets it."""
+    net = enc_cfg["network"]
+    return ConvEncoder(filters=[int(l["filters"]) for l in net],
+                       kernels=[int(l["kernel_size"]) for l in net],
+                       strides=[int(l["strides"]) for l in net],
+                       encoding_dim=int(enc_cfg["encoding_dim"]),
+                       alpha=float(enc_cfg.get("alpha", 0.1)))
+
+
+def _half_state_dict(half: dict, prefix: str) -> dict:
+    """One half of Flax autoencoder params -> state_dict entries under
+    `prefix`: HWIO conv kernels to OIHW, (in, out) dense kernels to
+    (out, in). Dense rows and columns keep their NHWC order, which is the
+    order of the port's flatten and reshape."""
+    out = {}
+    for name, layer in half.items():
+        conv = re.fullmatch(r"Conv_(\d+)", name)
+        if conv:
+            key, kernel = f"convs.{conv.group(1)}.", np.transpose(layer["kernel"], (3, 2, 0, 1))
+        elif name == "Dense_0":
+            key, kernel = "dense.", np.transpose(layer["kernel"])
+        else:
+            raise ValueError(f"unknown layer {name!r}")
+        if set(layer) != {"kernel", "bias"}:
+            raise ValueError(f"layer {name!r} holds {sorted(layer)}")
+        out[prefix + key + "weight"] = kernel
+        out[prefix + key + "bias"] = layer["bias"]
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}
+
+
+def encoder_state_dict(params: dict) -> dict:
+    """The `encoder` half of Flax autoencoder params -> a `ConvEncoder`
+    state_dict. Every `encoder/*` array is used; any other layer name is
+    refused."""
+    return _half_state_dict(params["encoder"], "")
+
+
+def ae_state_dict(params: dict) -> dict:
+    """Flax autoencoder params -> a `SimpleAutoEncoder` state_dict."""
+    return {**_half_state_dict(params["encoder"], "encoder."),
+            **_half_state_dict(params["decoder"], "decoder.")}
+
+
+def _load_params(model_dir):
+    with np.load(os.path.join(model_dir, "weights.npz"), allow_pickle=True) as f:
+        return f["params"].item()
+
+
+def load_trained_encoder(model_dir, device="cpu") -> ConvEncoder:
+    """The trained encoder of `model_dir` on `device`, frozen: a batched
+    encode, (B, 64, 64, 1) depth images -> (B, encoding_dim) latents."""
+    model = build_model(load_encoder_config(os.path.join(model_dir, "config.yaml")))
+    model.load_state_dict(encoder_state_dict(_load_params(model_dir)), strict=True)
+    return model.to(device).eval().requires_grad_(False)
+
+
+def load_trained_autoencoder(model_dir, device="cpu") -> SimpleAutoEncoder:
+    """The whole trained autoencoder of `model_dir` on `device`, frozen."""
+    model = SimpleAutoEncoder.from_config(
+        load_encoder_config(os.path.join(model_dir, "config.yaml")))
+    model.load_state_dict(ae_state_dict(_load_params(model_dir)), strict=True)
+    return model.to(device).eval().requires_grad_(False)
+
+
+@torch.no_grad()
+
+
+def encoder_for_config(config, device):
+    """The trained encoder for encoder-latent observations (the
+    EncodedDepthImgSensor's weights, reference sensor.py:186-196; the JAX
+    package's trainer.py:68-87 `_maybe_load_encoder`), on
+    `device`; None for image observations. Refuses when
+    `sensor.encoder_dir` is unset or holds no `weights.npz`."""
+    if config.get("depth_observation") or config.get("full_observation"):
+        return None
+    enc_dir = config.get("sensor", {}).get("encoder_dir")
+    if not enc_dir:
+        raise ValueError("encoder-latent observations need sensor.encoder_dir (a trained "
+                         "encoder such as encoder_files/full_r4); the port has no stand-in")
+    path = cfg_util.resolve_path(enc_dir)
+    if not os.path.exists(os.path.join(path, "weights.npz")):
+        raise ValueError(f"sensor.encoder_dir {enc_dir} ({path}) holds no weights.npz; the "
+                         "port has no stand-in for a missing encoder")
+    return load_trained_encoder(path, device)

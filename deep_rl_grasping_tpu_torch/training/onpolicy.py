@@ -31,12 +31,12 @@ from deep_rl_grasping_tpu_torch.algos import normalize as norm_mod
 from deep_rl_grasping_tpu_torch.algos.ppo import PPO
 from deep_rl_grasping_tpu_torch.algos.trpo import TRPO
 from deep_rl_grasping_tpu_torch.envs.grasp_env import BatchedGraspEnv, GraspEnv
+from deep_rl_grasping_tpu_torch.models.autoencoder import encoder_for_config
 from deep_rl_grasping_tpu_torch.training.trainer import (
     MONITOR_RING,
     EvalMixin,
     LoopState,
     _Clock,
-    _maybe_load_encoder,
     record_episodes,
     refuse_unported,
 )
@@ -52,8 +52,8 @@ class OnPolicyTrainer(EvalMixin):
         self.config = cfg_util.load_config(config)
         self.algo_name = algo.upper()
         self.device = torch.device(device)
-        refuse_unported(self.config["tpu"])
-        self.encoder = _maybe_load_encoder(self.config, self.device)
+        refuse_unported(self.config["tpu"], self.algo_name)
+        self.encoder = encoder_for_config(self.config, self.device)
         self.env = GraspEnv(self.config, device=self.device, encoder=self.encoder)
         self.num_envs = int(self.config["tpu"].get("num_envs", 128))
         gen = lambda k: torch.Generator(device=self.device).manual_seed(seed * 4 + k)

@@ -9,7 +9,7 @@ deep_rl_grasping_tpu/training/train.py).
         --model <dir> [-b] | --npz trained/sac_full_flagship_r5c \
         [--episodes N | --scenes <npz>] [-t] [--stochastic] [--device cuda|cpu]
 
-`train` is the single-device branch of train.py:78-473: off-policy for
+`train` is train.py:78-473: off-policy for
 SAC, DQN, BDQ and DDPG (training/trainer.py), on-policy for PPO and TRPO
 (training/onpolicy.py, train.py:149-155: a chunk is one policy iteration
 of `n_steps` x num_envs frames, and there is no replay, demo seeding or
@@ -44,10 +44,15 @@ episode per scene). Depth, RGB-D and encoder-latent observations (the CNN
 or the MLP torso, as the config says), the full and the simplified task
 are all taken.
 
+With `tpu.sharded` a replay learner trains data-parallel
+(parallel/train_dp.py, train.py:104-138): one rank per visible card over
+NCCL (on the CPU, one gloo rank), rank 0 writing checkpoints and logs
+(`run_training`); PPO and TRPO with `tpu.sharded` are refused
+(`trainer.refuse_unported`). `tpu.update_batch_scale` folds the replay
+learner's updates (`trainer.fold_updates`).
+
 Both run on the card unless `--device cpu` is given; with no card and no
-`--device cpu` they stop with an error instead of falling back. `train`
-refuses `tpu.sharded` (`trainer.refuse_unported`); `tpu.update_batch_scale`
-folds the replay learner's updates (`trainer.fold_updates`).
+`--device cpu` they stop with an error instead of falling back.
 """
 
 from __future__ import annotations
@@ -74,12 +79,14 @@ from deep_rl_grasping_tpu_torch.algos.normalize import NormalizerState, RunningM
 from deep_rl_grasping_tpu_torch.algos.ppo import PPO
 from deep_rl_grasping_tpu_torch.algos.trpo import TRPO
 from deep_rl_grasping_tpu_torch.envs.actuator import ActuatorSpec
-from deep_rl_grasping_tpu_torch.envs.grasp_env import env_state_from_numpy, observation_shape
+from deep_rl_grasping_tpu_torch.envs.grasp_env import (env_state_from_numpy, env_state_to_numpy,
+                                                       observation_shape)
 from deep_rl_grasping_tpu_torch.models.networks import SACActor
+from deep_rl_grasping_tpu_torch.parallel import train_dp
 from deep_rl_grasping_tpu_torch.training import callbacks as cb
 from deep_rl_grasping_tpu_torch.training.onpolicy import OnPolicyTrainer
 from deep_rl_grasping_tpu_torch.training.trainer import (ALGOS, OFF_POLICY, ON_POLICY, Evaluator,
-                                                         Trainer)
+                                                         Trainer, refuse_unported)
 from deep_rl_grasping_tpu_torch.utils import config as cfg_util
 from deep_rl_grasping_tpu_torch.utils import io_utils, policy_io
 from deep_rl_grasping_tpu_torch.utils.tb_events import TensorBoardWriter
@@ -89,6 +96,7 @@ log = logging.getLogger(__name__)
 # an early stop (the JAX package's tpu.stop_at_patience default; no config
 # sets it)
 STOP_PATIENCE = 50
+CURRICULUM_FIELDS = ("lam", "ring", "ptr", "filled", "sr_mean", "policy_iteration")
 
 
 def set_precision():
@@ -131,9 +139,12 @@ def _rms(r: RunningMeanStd):
     return {"mean": r.mean, "var": r.var, "count": r.count}
 
 
-def make_trainer(config, algo, device, seed=0):
+def make_trainer(config, algo, device, seed=0, dp=None):
     """The trainer of `algo`: the replay `Trainer` for the off-policy
-    learners, the `OnPolicyTrainer` for PPO and TRPO."""
+    learners, the `OnPolicyTrainer` for PPO and TRPO; with `dp` (a
+    `train_dp.DataParallel`), this rank's `train_dp.ShardedTrainer`."""
+    if dp is not None:
+        return train_dp.make_sharded_trainer(config, dp, algo=algo, seed=seed)
     cls = OnPolicyTrainer if algo.upper() in ON_POLICY else Trainer
     return cls(config, algo=algo, device=device, seed=seed)
 
@@ -146,8 +157,7 @@ def _bundle(trainer: Trainer, state):
         "algo_state": trainer.algo.state_dict(),
         "obs_rms": _rms(state.normalizer.obs_rms),
         "ret_rms": _rms(state.normalizer.ret_rms),
-        "curriculum": {f: getattr(cur, f) for f in
-                       ("lam", "ring", "ptr", "filled", "sr_mean", "policy_iteration")},
+        "curriculum": {f: getattr(cur, f) for f in CURRICULUM_FIELDS},
     }
 
 
@@ -217,15 +227,46 @@ def _runs_log(model_dir, load_dir, record):
 
 
 def train(args):
-    device = _device(args.device)
-    set_precision()
+    """`train`: `run_training` on one device; with `tpu.sharded`, one rank
+    per visible card over NCCL (a CPU run: one rank, gloo), rank 0's result
+    returned (parallel/train_dp.py `launch_train`)."""
     config = cfg_util.load_config(args.config)
     algo = args.algo.upper()
     if algo not in ALGOS:
         raise SystemExit(f"unknown algorithm {algo}; the port trains {', '.join(ALGOS)}")
+    if not bool(config.get("tpu", {}).get("sharded", False)):
+        return run_training(args)[0]
+    refuse_unported(config["tpu"], algo)
+    device = _device(args.device)
+    if device.type == "cuda":
+        world, backend = torch.cuda.device_count(), "nccl"
+        devices = [f"cuda:{r}" for r in range(world)]
+    else:
+        world, backend, devices = 1, "gloo", ["cpu"]
+    return train_dp.launch_train(args.argv, world, backend, devices)[0]["result"]
+
+
+def run_training(args, dp=None):
+    """The training loop of `train` on one device, or on one rank of a
+    data-parallel run (`dp`, a `train_dp.DataParallel`: train.py:104-138,
+    176-190, 333-455). Sharded, every rank steps its own envs and updates
+    the shared learner; rank 0 alone writes the config, checkpoints (its
+    learner and normalizer, so a bundle resumes at any world size), logs,
+    TensorBoard, the evaluations and runs.jsonl, and the monitor CSV from
+    every rank's episode ring, gathered; frames count every rank (world x
+    the rank's step); ring snapshots and the q-tripwire are off, as in the
+    JAX package; a resume gives every rank the same checkpoint, at the
+    rank's step frames // world; and the ranks agree after every chunk
+    whether to stop (SIGTERM on any rank, the end of the run), so that no
+    rank waits alone in a collective. Returns (result, trainer, state)."""
+    device = dp.device if dp is not None else _device(args.device)
+    world = 1 if dp is None else dp.world
+    lead = dp is None or dp.rank == 0
+    set_precision()
+    config = cfg_util.load_config(args.config)
+    algo = args.algo.upper()
     off_policy = algo in OFF_POLICY
     model_dir = args.model_dir
-    os.makedirs(os.path.join(model_dir, "best_model"), exist_ok=True)
 
     # CLI overrides (train_stable_baselines.py:34-50)
     if args.simple:
@@ -238,8 +279,10 @@ def train(args):
         config["time_feature"] = True
     config["robot"]["discrete"] = algo in ("DQN", "BDQ")
     config["algorithm"] = algo.lower()
-    io_utils.save_yaml(config, os.path.join(model_dir, "config.yaml"))
-    io_utils.save_yaml(config, os.path.join(model_dir, "best_model", "config.yaml"))
+    if lead:
+        os.makedirs(os.path.join(model_dir, "best_model"), exist_ok=True)
+        io_utils.save_yaml(config, os.path.join(model_dir, "config.yaml"))
+        io_utils.save_yaml(config, os.path.join(model_dir, "best_model", "config.yaml"))
 
     tpu = config.get("tpu", {})
     total_timesteps = int(config.get(algo, {}).get("total_timesteps", 1_000_000))
@@ -249,10 +292,10 @@ def train(args):
     chunk_steps = max(int(tpu.get("chunk_steps", 20)), 1) if off_policy else 1
 
     t_start = time.perf_counter()
-    trainer = make_trainer(config, algo, device, args.seed)
+    trainer = make_trainer(config, algo, device, args.seed, dp)
     state = trainer.init_state()
-    frames_per_chunk = chunk_steps * (trainer.num_envs if off_policy
-                                      else trainer.frames_per_iteration)
+    frames_per_chunk = world * chunk_steps * (trainer.num_envs if off_policy
+                                              else trainer.frames_per_iteration)
 
     # resume: the newest checkpoint of --load_dir, then its ring snapshot,
     # before demo seeding (the demo ring is not saved: seeding refills it at
@@ -261,11 +304,15 @@ def train(args):
     if args.load_dir:
         prev = cb.Checkpointer(args.load_dir)
         resume_frames = int(prev.latest_step() or 0)
-        state = restore_learner(trainer, state, prev.restore(device=device), resume_frames)
+        state = restore_learner(trainer, state, prev.restore(device=device),
+                                resume_frames // world)
+        if dp is not None:
+            train_dp.broadcast_learner(dp, trainer.algo)
         log.info("resumed the learner from %s at %d frames (lambda %.3f)", args.load_dir,
                  resume_frames, float(state.curriculum.lam))
     ring_rows, ring_every = ring_settings(tpu)
-    ring_ckpt = cb.RingCheckpointer(model_dir) if ring_rows > 0 and off_policy else None
+    ring_ckpt = (cb.RingCheckpointer(model_dir) if ring_rows > 0 and off_policy and dp is None
+                 else None)
     if ring_ckpt is not None and args.load_dir:
         same_dir = os.path.abspath(args.load_dir) == os.path.abspath(model_dir)
         snap = (ring_ckpt if same_dir else cb.RingCheckpointer(args.load_dir)).restore_raw()
@@ -281,24 +328,27 @@ def train(args):
                          ring_restored, ring_restore_s)
 
     demo_frames = int(tpu.get("demo_frames", 0)) if off_policy else 0
+    demo = None
     if demo_frames > 0:
         state, n_done, n_succ = trainer.seed_demos(state, demo_frames)
+        demo = dict(episodes=n_done, successes=n_succ)
         log.info("seeded %d demo frames: %d episodes, %.1f%% success", demo_frames,
                  int(n_done), 100.0 * n_succ / max(n_done, 1.0))
 
-    monitor = cb.MonitorLogger(model_dir)
-    scalars = cb.ScalarLogger(model_dir)
-    tb = TensorBoardWriter(os.path.join(model_dir, "tb"))
-    eval_log = cb.ScalarLogger(model_dir, filename="eval_logs.csv")
-    curr_log = cb.CurriculumLogger(model_dir)
-    ckpt = cb.Checkpointer(model_dir)
+    if lead:
+        monitor = cb.MonitorLogger(model_dir)
+        scalars = cb.ScalarLogger(model_dir)
+        tb = TensorBoardWriter(os.path.join(model_dir, "tb"))
+        eval_log = cb.ScalarLogger(model_dir, filename="eval_logs.csv")
+        curr_log = cb.CurriculumLogger(model_dir)
+        ckpt = cb.Checkpointer(model_dir)
     timer = cb.TrainingTimer()
 
     # Divergence tripwire: q_target_mean outside a band 2% inside SAC.q_clip
-    # rolls the learner back to the last checkpoint.
+    # rolls the learner back to the last checkpoint (not when sharded).
     q_band = None
     qc = config.get("SAC", {}).get("q_clip")
-    if qc and algo == "SAC":
+    if qc and algo == "SAC" and dp is None:
         margin = 0.02 * (float(qc[1]) - float(qc[0]))
         q_band = [float(qc[0]) + margin, float(qc[1]) - margin]
     last_rollback = -10 ** 9
@@ -309,44 +359,57 @@ def train(args):
     stop_streak = 0
     solved = False
 
-    log.info("training %s for %d frames (%d envs) on %s", algo, total_timesteps,
-             trainer.num_envs, device)
+    log.info("training %s for %d frames (%d envs on %d rank(s)) on %s", algo, total_timesteps,
+             trainer.num_envs * world, world, device)
     frames = resume_frames
     last_eval, last_ckpt, last_demo, last_ring = (
         _cadence_start(frames, max(every, 1), frames_per_chunk)
         for every in (eval_freq, checkpoint_freq, demo_refresh_every, ring_every))
     saved_ckpt = False
     ring_save = None
-    drained = 0
+    drained = [0] * world
+    episodes = 0
     row, res = {}, {}
     term_requested = []
     prev_handler = signal.signal(signal.SIGTERM, lambda *_: term_requested.append(True))
     try:
         while frames < total_timesteps:
-            if term_requested:
+            stop = bool(term_requested)
+            if dp is not None:
+                stop = dp.any(stop)
+            if stop:
                 log.info("SIGTERM received; saving and exiting at %d frames", frames)
                 break
             state, metrics = trainer.train_chunk(state, chunk_steps)
-            frames = state.global_step
+            frames = world * state.global_step
             timer.tick(frames_per_chunk)
 
-            # one monitor row per episode finished in this chunk
-            ring_n, R = int(state.ep_ring_n), state.ep_ring.shape[0]
-            new = min(ring_n - drained, R)
-            if new > 0:
-                idx = torch.arange(ring_n - new, ring_n, device=state.ep_ring.device) % R
-                monitor.log_episodes(state.ep_ring[idx].cpu().tolist())
-            drained = ring_n
+            # one monitor row per episode finished in this chunk, rank by rank
+            ring, ring_n = state.ep_ring[None], state.ep_ring_n.reshape(1)
+            if dp is not None:
+                ring = dp.gather(ring)
+                ring_n = dp.gather(ring_n.to(torch.float64)).to(torch.int64)
+            ring_n, R = ring_n.tolist(), ring.shape[1]
+            episodes = sum(ring_n)
+            for r, n in enumerate(ring_n):
+                new = min(n - drained[r], R)
+                if new > 0 and lead:
+                    idx = torch.arange(n - new, n, device=ring.device) % R
+                    monitor.log_episodes(ring[r, idx].cpu().tolist())
+                drained[r] = n
             cur = state.curriculum
             sr, lam = float(cur.sr_mean), float(cur.lam)
             row = dict(success_rate=sr, curriculum_lambda=lam, steps_per_s=timer.steps_per_s,
                        **{k: float(v) for k, v in metrics.items()})
-            scalars.log(frames, row)
-            tb.add_scalars(frames, row)
-            curr_log.log(int(cur.policy_iteration), lam)
-            log.info("frames %d  sr %.3f  lambda %.2f  %.0f steps/s", frames, sr, lam,
-                     timer.steps_per_s)
+            if lead:
+                scalars.log(frames, row)
+                tb.add_scalars(frames, row)
+                curr_log.log(int(cur.policy_iteration), lam)
+                log.info("frames %d  sr %.3f  lambda %.2f  %.0f steps/s", frames, sr, lam,
+                         timer.steps_per_s)
 
+            # the curriculum and the frame count are the same on every rank,
+            # so every rank reaches an early stop at the same chunk
             if stop_at_sr is not None:
                 at_target = lam >= 1.0 and sr >= float(stop_at_sr)
                 stop_streak = stop_streak + 1 if at_target else 0
@@ -375,41 +438,28 @@ def train(args):
                 last_demo = frames
 
             if frames - last_ckpt >= checkpoint_freq:
-                ckpt.save(frames, _bundle(trainer, state))
+                if lead:
+                    ckpt.save(frames, _bundle(trainer, state))
                 last_ckpt, saved_ckpt = frames, True
             if ring_ckpt is not None and frames - last_ring >= ring_every:
                 ring_save = _save_ring(ring_ckpt, frames, state.buffer, ring_rows)
                 last_ring = frames
             if frames - last_eval >= eval_freq:
-                actor, norm = trainer.policy, state.normalizer
-                res = trainer.evaluate(actor, norm)
-                for k in ("episode_success", "episode_cleared"):  # the scalar logs take means
-                    res.pop(k)
-                log.info("eval @ %d: %s", frames, res)
-                # second eval at the training lambda while the curriculum ramps
-                if lam < 1.0:
-                    res_tr = trainer.evaluate(actor, norm, lam=lam)
-                    res["train_lambda_success"] = float(res_tr["success_rate"])
-                    res["train_lambda"] = lam
-                    log.info("eval @ %d (training lambda %.3f): sr %.2f", frames, lam,
-                             res["train_lambda_success"])
-                eval_log.log(frames, res)
-                tb.add_scalars(frames, {"eval_" + k: v for k, v in res.items()})
-                if ckpt.save_best(frames, _bundle(trainer, state), res["mean_return"]):
-                    log.info("new best model (return %.1f)", res["mean_return"])
+                if lead:
+                    res = _evaluate(trainer, state, lam, frames, eval_log, tb, ckpt)
                 last_eval = frames
     except KeyboardInterrupt:
         log.info("interrupted; saving the model")
     finally:
         signal.signal(signal.SIGTERM, prev_handler)
 
-    ckpt.save(max(frames, 1), _bundle(trainer, state))
+    if lead:
+        ckpt.save(max(frames, 1), _bundle(trainer, state))
     if ring_ckpt is not None and (ring_save is None or ring_save["frames"] != frames):
         ring_save = _save_ring(ring_ckpt, max(frames, 1), state.buffer, ring_rows)
-    monitor.close()
-    scalars.close()
-    eval_log.close()
-    tb.close()
+    if lead:
+        for f in (monitor, scalars, eval_log, tb):
+            f.close()
     done = frames >= total_timesteps or solved
     if done:
         log.info("done: %d frames", frames)
@@ -418,23 +468,88 @@ def train(args):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t_start
-    _runs_log(model_dir, args.load_dir, dict(
+    record = dict(
         command=" ".join(["python -m deep_rl_grasping_tpu_torch.training.train"]
                          + [shlex.quote(a) for a in args.argv]),
         seed=args.seed, device=str(device), card=card_info(device), load_dir=args.load_dir,
         start_frames=resume_frames, frames=frames, done=done, wall_seconds=wall,
-        ring_rows_restored=ring_restored))
+        ring_rows_restored=ring_restored)
+    if dp is not None:
+        record.update(world=world, backend=torch.distributed.get_backend(dp.group))
+    if lead:
+        _runs_log(model_dir, args.load_dir, record)
     cur, buf = state.curriculum, state.buffer
-    return dict(frames=frames, done=done, wall_seconds=wall, resume_frames=resume_frames,
-                ring_rows_restored=ring_restored, ring_restore_seconds=ring_restore_s,
-                ring_save=ring_save,
-                curriculum_lambda=float(cur.lam), success_rate=float(cur.sr_mean),
-                episodes=int(state.ep_ring_n), metrics=row, eval=res,
-                updates=trainer.algo.step, phase_seconds=trainer.clock.totals(),
-                checkpoint_step=ckpt.latest_step(),
-                replay_rows=None if buf is None else buf.size,
-                rows_off_priority_1=int((buf.priority[:buf.size] != 1.0).sum())
-                if trainer.prioritized else None)
+    result = dict(frames=frames, done=done, wall_seconds=wall, resume_frames=resume_frames,
+                  ring_rows_restored=ring_restored, ring_restore_seconds=ring_restore_s,
+                  ring_save=ring_save, world=world, demo=demo,
+                  curriculum_lambda=float(cur.lam), success_rate=float(cur.sr_mean),
+                  episodes=episodes, metrics=row, eval=res,
+                  updates=trainer.algo.step, phase_seconds=trainer.clock.totals(),
+                  checkpoint_step=ckpt.latest_step() if lead else None,
+                  replay_rows=None if buf is None else buf.size,
+                  rows_off_priority_1=int((buf.priority[:buf.size] != 1.0).sum())
+                  if trainer.prioritized else None)
+    return result, trainer, state
+
+
+def _evaluate(trainer, state, lam, frames, eval_log, tb, ckpt):
+    """The eval cadence's work: the protocol evaluation, a second one at
+    the training lambda while the curriculum ramps, the logs, and the best
+    model. Returns the logged results."""
+    actor, norm = trainer.policy, state.normalizer
+    res = trainer.evaluate(actor, norm)
+    for k in ("episode_success", "episode_cleared"):  # the scalar logs take means
+        res.pop(k)
+    log.info("eval @ %d: %s", frames, res)
+    if lam < 1.0:
+        res_tr = trainer.evaluate(actor, norm, lam=lam)
+        res["train_lambda_success"] = float(res_tr["success_rate"])
+        res["train_lambda"] = lam
+        log.info("eval @ %d (training lambda %.3f): sr %.2f", frames, lam,
+                 res["train_lambda_success"])
+    eval_log.log(frames, res)
+    tb.add_scalars(frames, {"eval_" + k: v for k, v in res.items()})
+    if ckpt.save_best(frames, _bundle(trainer, state), res["mean_return"]):
+        log.info("new best model (return %.1f)", res["mean_return"])
+    return res
+
+
+def train_rank(args, dp):
+    """One rank of a data-parallel `train`: `run_training`'s result, and
+    what is compared across ranks (the learner's state, the curriculum, the
+    env states, the generators' states, the demo episodes seeded on this
+    rank, the rank's own observation moments), the rank's peak device
+    memory and its kernel launches, all on the host."""
+    from deep_rl_grasping_tpu_torch.ops import raster_cuda, solver_cuda
+
+    result, trainer, state = run_training(args, dp)
+    cur = state.curriculum
+    return dict(
+        result=result, rank=dp.rank, world=dp.world, step=state.global_step,
+        num_envs=trainer.num_envs, learner=_to_host(trainer.algo.state_dict()),
+        curriculum={f: getattr(cur, f).cpu() for f in CURRICULUM_FIELDS},
+        env_states={k: torch.as_tensor(v) for k, v in
+                    env_state_to_numpy(state.env_states).items()},
+        generators={k: getattr(trainer, k + "_gen").get_state()
+                    for k in ("env", "learn", "demo")},
+        demo_local=trainer.demo_local,
+        obs_rms={f: getattr(state.normalizer.obs_rms, f).detach().cpu()
+                 for f in ("mean", "var", "count")},
+        max_memory_allocated_gib=(torch.cuda.max_memory_allocated(dp.device) / 2 ** 30
+                                  if dp.device.type == "cuda" else None),
+        launches={"solver": solver_cuda.run_batch.launches,
+                  "raster": raster_cuda.raster_depth_seg.launches,
+                  "raster_shade": raster_cuda.raster_depth_seg.shade_launches})
+
+
+def _to_host(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    return tree
 
 
 def _policy_for(config, device):
@@ -538,7 +653,9 @@ def run(args):
     return res
 
 
-def main(argv=None):
+def parse_args(argv=None):
+    """The parsed command line (`argv`, default sys.argv[1:]), kept as
+    `args.argv`."""
     parser = argparse.ArgumentParser()
     sub = parser.add_subparsers(required=True)
 
@@ -572,6 +689,11 @@ def main(argv=None):
     rp.set_defaults(func=run)
     args = parser.parse_args(argv)
     args.argv = list(sys.argv[1:] if argv is None else argv)
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
     return args.func(args)
 
 

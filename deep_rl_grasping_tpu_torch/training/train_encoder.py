@@ -33,85 +33,26 @@ from __future__ import annotations
 import argparse
 import csv
 import os
-import re
 import time
 
 import numpy as np
 import torch
 
 from deep_rl_grasping_tpu_torch.models import autoencoder as ae
-from deep_rl_grasping_tpu_torch.models.autoencoder import ConvEncoder
+from deep_rl_grasping_tpu_torch.models.autoencoder import (  # noqa: F401 (this module's interface)
+    DEFAULT_ENCODER_CONFIG,
+    ae_state_dict,
+    encoder_state_dict,
+    load_encoder_config,
+    load_trained_autoencoder,
+    load_trained_encoder,
+)
 from deep_rl_grasping_tpu_torch.utils import config as cfg_util
 from deep_rl_grasping_tpu_torch.utils import io_utils
 
-# the JAX package's DEFAULT_ENCODER_CONFIG (:33), used when a config file
-# or an encoder directory's config.yaml is missing
-DEFAULT_ENCODER_CONFIG = {
-    "network": [
-        {"filters": 32, "kernel_size": 7, "strides": 2},
-        {"filters": 32, "kernel_size": 5, "strides": 2},
-        {"filters": 32, "kernel_size": 3, "strides": 2},
-    ],
-    "encoding_dim": 100,
-    "learning_rate": 0.0002,
-    "batch_size": 128,
-    "epochs": 120,
-}
 VAL_FRACTION = 10  # one image in 10 is held out (encoders.py:46-48)
 PATIENCE = 25      # epochs without a new best validation MSE before stopping
 EVAL_CHUNK = 512   # images per forward pass of an evaluation
-
-
-def load_encoder_config(path):
-    if path and os.path.exists(cfg_util.resolve_path(path)):
-        return io_utils.load_yaml(cfg_util.resolve_path(path))
-    return dict(DEFAULT_ENCODER_CONFIG)
-
-
-def build_model(enc_cfg) -> ConvEncoder:
-    """The encoder half of `SimpleAutoEncoder.from_config` (autoencoder.py:82)
-    for 64 x 64 images; the leaky-ReLU slope defaults to 0.1, as no shipped
-    config sets it."""
-    net = enc_cfg["network"]
-    return ConvEncoder(filters=[int(l["filters"]) for l in net],
-                       kernels=[int(l["kernel_size"]) for l in net],
-                       strides=[int(l["strides"]) for l in net],
-                       encoding_dim=int(enc_cfg["encoding_dim"]),
-                       alpha=float(enc_cfg.get("alpha", 0.1)))
-
-
-def _half_state_dict(half: dict, prefix: str) -> dict:
-    """One half of Flax autoencoder params -> state_dict entries under
-    `prefix`: HWIO conv kernels to OIHW, (in, out) dense kernels to
-    (out, in). Dense rows and columns keep their NHWC order, which is the
-    order of the port's flatten and reshape."""
-    out = {}
-    for name, layer in half.items():
-        conv = re.fullmatch(r"Conv_(\d+)", name)
-        if conv:
-            key, kernel = f"convs.{conv.group(1)}.", np.transpose(layer["kernel"], (3, 2, 0, 1))
-        elif name == "Dense_0":
-            key, kernel = "dense.", np.transpose(layer["kernel"])
-        else:
-            raise ValueError(f"unknown layer {name!r}")
-        if set(layer) != {"kernel", "bias"}:
-            raise ValueError(f"layer {name!r} holds {sorted(layer)}")
-        out[prefix + key + "weight"] = kernel
-        out[prefix + key + "bias"] = layer["bias"]
-    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}
-
-
-def encoder_state_dict(params: dict) -> dict:
-    """The `encoder` half of Flax autoencoder params -> a `ConvEncoder`
-    state_dict. Every `encoder/*` array is used; any other layer name is
-    refused."""
-    return _half_state_dict(params["encoder"], "")
-
-
-def ae_state_dict(params: dict) -> dict:
-    """Flax autoencoder params -> a `SimpleAutoEncoder` state_dict."""
-    return {**_half_state_dict(params["encoder"], "encoder."),
-            **_half_state_dict(params["decoder"], "decoder.")}
 
 
 def ae_params(model: ae.SimpleAutoEncoder) -> dict:
@@ -137,28 +78,6 @@ def save_weights(model: ae.SimpleAutoEncoder, path):
     np.savez(path, params=np.asarray(ae_params(model), dtype=object))
 
 
-def _load_params(model_dir):
-    with np.load(os.path.join(model_dir, "weights.npz"), allow_pickle=True) as f:
-        return f["params"].item()
-
-
-def load_trained_encoder(model_dir, device="cpu") -> ConvEncoder:
-    """The trained encoder of `model_dir` on `device`, frozen: a batched
-    encode, (B, 64, 64, 1) depth images -> (B, encoding_dim) latents."""
-    model = build_model(load_encoder_config(os.path.join(model_dir, "config.yaml")))
-    model.load_state_dict(encoder_state_dict(_load_params(model_dir)), strict=True)
-    return model.to(device).eval().requires_grad_(False)
-
-
-def load_trained_autoencoder(model_dir, device="cpu") -> ae.SimpleAutoEncoder:
-    """The whole trained autoencoder of `model_dir` on `device`, frozen."""
-    model = ae.SimpleAutoEncoder.from_config(
-        load_encoder_config(os.path.join(model_dir, "config.yaml")))
-    model.load_state_dict(ae_state_dict(_load_params(model_dir)), strict=True)
-    return model.to(device).eval().requires_grad_(False)
-
-
-@torch.no_grad()
 def mse(model, x):
     """Mean squared reconstruction error of images `x` (N, H, W, 1), in
     chunks of EVAL_CHUNK images."""

@@ -25,7 +25,7 @@ unchanged:
   iteration are NaN.
 
 Encoder-latent observations load the trained encoder named by
-`sensor.encoder_dir` (`_maybe_load_encoder`, trainer.py:68-87) and hand it
+`sensor.encoder_dir` (`encoder_for_config`, trainer.py:68-87) and hand it
 to the training env and the evaluation env alike. Where the JAX package
 falls back to a downsampled-depth stand-in when the directory or its
 weights are missing (grasp_env.py:298-311), the port refuses.
@@ -55,8 +55,8 @@ from deep_rl_grasping_tpu_torch.algos.ppo import ActorCriticLearner
 from deep_rl_grasping_tpu_torch.envs import curriculum as curr_mod
 from deep_rl_grasping_tpu_torch.envs import scripted
 from deep_rl_grasping_tpu_torch.envs.grasp_env import BatchedGraspEnv, EnvState, GraspEnv
+from deep_rl_grasping_tpu_torch.models.autoencoder import encoder_for_config
 from deep_rl_grasping_tpu_torch.sim.types import _Replace
-from deep_rl_grasping_tpu_torch.training.train_encoder import load_trained_encoder
 from deep_rl_grasping_tpu_torch.utils import config as cfg_util
 
 SCENE_SEED = 1
@@ -71,15 +71,26 @@ ON_POLICY = ("PPO", "TRPO")
 ALGOS = OFF_POLICY + ON_POLICY
 
 
-def refuse_unported(tpu_cfg):
-    """Raise on configuration the port cannot honour yet, rather than run
-    something other than what the config asks (ROADMAP Queue 1 lists the
-    item)."""
-    if bool(tpu_cfg.get("sharded", False)):
+def refuse_unported(tpu_cfg, algo_name):
+    """Raise on configuration the port does not run, rather than run
+    something other than what the config asks: `tpu.sharded` with an
+    on-policy learner. The data-parallel trainer (parallel/train_dp.py)
+    shards the replay learners; the JAX package's `train` shards only those
+    too and runs a PPO or TRPO config on one device whatever `tpu.sharded`
+    says (train.py:110). No config asks for that combination."""
+    if bool(tpu_cfg.get("sharded", False)) and algo_name.upper() in ON_POLICY:
         raise ValueError(
-            "tpu.sharded: true asks for the data-parallel trainer "
-            "(deep_rl_grasping_tpu/parallel/train_dp.py), which the port does not have yet "
-            "(ROADMAP Queue 1 item 8, multi-GPU); set it to false to train on one device")
+            f"tpu.sharded: true with {algo_name.upper()}: the data-parallel trainer shards the "
+            "replay learners only (SAC, DQN, BDQ, DDPG), not the on-policy ones; set "
+            "tpu.sharded to false to train on one device")
+
+
+def stream_seed(seed, k, rank=0):
+    """Seed of a trainer's generator k: seed * 4 + k on rank 0, so that a
+    one-rank data-parallel run is the single-device run; moved by
+    rank * 0x9E3779B1 on other ranks. Kept within 32 bits: the CPU
+    generator drops the high bits of a seed."""
+    return (seed * 4 + k + rank * 0x9E3779B1) % 2 ** 32
 
 
 def fold_updates(config, algo_name):
@@ -152,24 +163,6 @@ def act(policy, obs, gen, deterministic=False, frames=None):
     if isinstance(policy, DDPG):
         return policy.act(obs, gen, deterministic)
     return sac.act(policy, obs, gen, deterministic=deterministic)
-
-
-def _maybe_load_encoder(config, device):
-    """The trained encoder for encoder-latent observations (the
-    EncodedDepthImgSensor's weights, reference sensor.py:186-196), on
-    `device`; None for image observations. Refuses when
-    `sensor.encoder_dir` is unset or holds no `weights.npz`."""
-    if config.get("depth_observation") or config.get("full_observation"):
-        return None
-    enc_dir = config.get("sensor", {}).get("encoder_dir")
-    if not enc_dir:
-        raise ValueError("encoder-latent observations need sensor.encoder_dir (a trained "
-                         "encoder such as encoder_files/full_r4); the port has no stand-in")
-    path = cfg_util.resolve_path(enc_dir)
-    if not os.path.exists(os.path.join(path, "weights.npz")):
-        raise ValueError(f"sensor.encoder_dir {enc_dir} ({path}) holds no weights.npz; the "
-                         "port has no stand-in for a missing encoder")
-    return load_trained_encoder(path, device)
 
 
 class EvalMixin:
@@ -270,7 +263,7 @@ class Evaluator(EvalMixin):
         self.algo_name = str(self.config.get("algorithm", "sac")).upper()
         self.normalize = bool(self.config.get("normalize", False))
         self.device = torch.device(device)
-        self.encoder = _maybe_load_encoder(self.config, self.device)
+        self.encoder = encoder_for_config(self.config, self.device)
 
 
 @dataclass
@@ -303,15 +296,17 @@ def record_episodes(state: LoopState, dones, infos) -> LoopState:
 
 
 class _Clock:
-    """Wall time of the env-step and update phases of each iteration: CUDA
-    events on the card, the host clock on the CPU. `train_chunk` folds the
+    """Wall time of the env-step and update phases of each iteration, and
+    of the gradient all-reduces inside the updates of a data-parallel rank
+    (parallel/train_dp.py): CUDA events on the card, the host clock on the
+    CPU. `train_chunk` folds the
     finished intervals into running totals at the end of every chunk, so
     only one chunk's events are alive at a time."""
 
     def __init__(self, device):
         self.cuda = device.type == "cuda"
         self.pending = []
-        self.sums = {"env": [0.0, 0], "update": [0.0, 0]}
+        self.sums = {"env": [0.0, 0], "update": [0.0, 0], "allreduce": [0.0, 0]}
 
     def mark(self):
         if self.cuda:
@@ -339,16 +334,15 @@ class _Clock:
 
 
 class Trainer(EvalMixin):
-    def __init__(self, config, algo="SAC", device="cuda", seed=0):
+    def __init__(self, config, algo="SAC", device="cuda", seed=0, rank=0):
         self.config = cfg_util.load_config(config)
         self.algo_name = algo.upper()
         self.device = torch.device(device)
         tpu_cfg = self.config["tpu"]
-        refuse_unported(tpu_cfg)
-        self.encoder = _maybe_load_encoder(self.config, self.device)
+        self.encoder = encoder_for_config(self.config, self.device)
         self.env = GraspEnv(self.config, device=self.device, encoder=self.encoder)
         self.num_envs = int(tpu_cfg.get("num_envs", 128))
-        gen = lambda k: torch.Generator(device=self.device).manual_seed(seed * 4 + k)
+        gen = lambda k: torch.Generator(device=self.device).manual_seed(stream_seed(seed, k, rank))
         self.env_gen, self.learn_gen, self.demo_gen = gen(0), gen(1), gen(2)
         self.benv = BatchedGraspEnv(self.env, self.num_envs, self.env_gen)
         self.updates_per_step = fold_updates(self.config, self.algo_name)

@@ -1,5 +1,6 @@
 """Quaternion / rotation math in PyTorch (port of the parts of
-deep_rl_grasping_tpu/utils/transforms.py that the evaluation path uses).
+deep_rl_grasping_tpu/utils/transforms.py that the evaluation path and the
+gym adapter use).
 
 Quaternion convention: [x, y, z, w]. All functions broadcast over leading axes.
 """
@@ -43,3 +44,24 @@ def random_quaternion(u3):
         dim=-1,
     )
 
+
+
+def quat_mul(q1, q2):
+    """Hamilton product q1 * q2 (apply q2 first, then q1), [x, y, z, w]."""
+    x1, y1, z1, w1 = q1.unbind(-1)
+    x2, y2, z2, w2 = q2.unbind(-1)
+    return torch.stack([w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+                        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+                        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+                        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2], -1)
+
+
+def quat_from_euler(roll, pitch, yaw):
+    """Static-axes xyz euler angles ('sxyz', float32) -> quaternion
+    [x, y, z, w] (transformations.quaternion_from_euler)."""
+    roll, pitch, yaw = (torch.as_tensor(a, dtype=torch.float32) for a in (roll, pitch, yaw))
+    cr, sr = torch.cos(roll * 0.5), torch.sin(roll * 0.5)
+    cp, sp = torch.cos(pitch * 0.5), torch.sin(pitch * 0.5)
+    cy, sy = torch.cos(yaw * 0.5), torch.sin(yaw * 0.5)
+    return torch.stack([sr * cp * cy - cr * sp * sy, cr * sp * cy + sr * cp * sy,
+                        cr * cp * sy - sr * sp * cy, cr * cp * cy + sr * sp * sy], -1)

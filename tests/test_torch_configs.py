@@ -10,12 +10,16 @@ its learner; the trainer's observation shape is the one `run` builds a
 policy for (`grasp_env.observation_shape`). Table clearing
 (`sac_table_clearing.yaml`) builds its OnTable tray env; the folded update
 (`sac_simplified_batched_quality.yaml`, `tpu.update_batch_scale` 8) builds
-with the batch and the update count folded. Three configs are refused,
-each with the error that names what the port does not have: `tpu.sharded`
-(`sac_simplified_sharded*.yaml`, ROADMAP Queue 1 item 8), and encoder
-latents with no trained encoder (`sac_simplified_demo.yaml` names no
-`sensor.encoder_dir`; a deliberate difference, where the JAX package runs
-a downsampled-depth stand-in). The two camera files are not training
+with the batch and the update count folded; the data-parallel quality
+config (`sac_simplified_sharded_quality.yaml`, `tpu.sharded`) builds the
+trainer each of its ranks runs. Two configs are refused, each with the
+error that names what the port does not have: encoder latents with no
+trained encoder (`sac_simplified_sharded.yaml` and
+`sac_simplified_demo.yaml` name no `sensor.encoder_dir`; a deliberate
+difference, where the JAX package runs a downsampled-depth stand-in). PPO
+and TRPO with `tpu.sharded` are refused by name, by `make_trainer` and by
+`train` (the data-parallel trainer shards the replay learners only; the
+JAX package quietly trains such a config on one device). The two camera files are not training
 configs: every other config names them as its sensor files. The loop
 state is not built: resetting full-physics envs on the CPU takes seconds
 per config, and tests/test_torch_training.py and the algorithm tests build
@@ -37,8 +41,7 @@ from deep_rl_grasping_tpu_torch.utils import io_utils
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "*.yaml")))
 CAMERA_FILES = {"camera_info.yaml": "camera_info", "camera_transform.yaml": "transform"}
-REFUSED = {"sac_simplified_sharded.yaml": (ValueError, "tpu.sharded.*item 8"),
-           "sac_simplified_sharded_quality.yaml": (ValueError, "tpu.sharded.*item 8"),
+REFUSED = {"sac_simplified_sharded.yaml": (ValueError, "need sensor.encoder_dir"),
            "sac_simplified_demo.yaml": (ValueError, "need sensor.encoder_dir")}
 
 
@@ -106,3 +109,20 @@ def test_config_builds_a_trainer_or_is_refused(path):
             env = trainer.env
             assert env.reward_spec.table_clearing and env.sim_params.has_tray
             assert env.max_slots == 5 and env.time_horizon == 200
+        if name == "sac_simplified_sharded_quality.yaml":
+            assert cfg["tpu"]["sharded"] and trainer.algo.batch_size == 128
+
+
+@pytest.mark.parametrize("name", ["ppo_simplified.yaml", "trpo_simplified.yaml"])
+def test_on_policy_sharded_is_refused(name, tmp_path):
+    algo = name.split("_")[0].upper()
+    cfg = _tiny(os.path.join(REPO, "configs", name), algo)
+    cfg["tpu"]["sharded"] = True
+    with pytest.raises(ValueError, match=f"{algo}: the data-parallel trainer shards the replay"):
+        train.make_trainer(cfg, algo, "cpu")
+    path, run = str(tmp_path / "sharded.yaml"), str(tmp_path / "run")
+    io_utils.save_yaml(cfg, path)
+    with pytest.raises(ValueError, match="replay learners only"):
+        train.main(["train", "--config", path, "--algo", algo, "--model_dir", run,
+                    "--device", "cpu"])
+    assert not os.path.exists(run)

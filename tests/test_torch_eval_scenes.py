@@ -386,15 +386,15 @@ def test_more_scenes_load_and_match_jax(more_scenes):
 
 @pytest.fixture(scope="module")
 def simp_scenes():
-    from deep_rl_grasping_tpu_torch.training.trainer import (_maybe_load_encoder,
-                                                             set_action_interface)
+    from deep_rl_grasping_tpu_torch.models.autoencoder import encoder_for_config
+    from deep_rl_grasping_tpu_torch.training.trainer import set_action_interface
 
     n = torch.get_num_threads()
     torch.set_num_threads(2)
     data = np.load(SCENES_SIMP_VAL)
     config, policy, _ = ttrain.load_bundle_actor(BDQ_BUNDLE, "cpu")
     env = tenv.GraspEnv(config, evaluate=True, validate=True, device="cpu",
-                        encoder=_maybe_load_encoder(config, "cpu"))
+                        encoder=encoder_for_config(config, "cpu"))
     set_action_interface(env, "BDQ", config)
     states = tenv.env_state_from_numpy(_part(data, "scene."))
     yield data, config, policy, env, states

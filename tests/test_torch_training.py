@@ -157,18 +157,19 @@ def _flagship_config(**tpu):
     return cfg
 
 
-@pytest.mark.parametrize("tpu,item", [(dict(sharded=True), "item 8"),
-                                      (dict(update_batch_scale=3), "must divide")],
+@pytest.mark.parametrize("tpu,algo,item",
+                         [(dict(sharded=True), "PPO", "replay learners only"),
+                          (dict(update_batch_scale=3), "SAC", "must divide")],
                          ids=["sharded", "update_batch_scale"])
-def test_trainer_refuses_what_the_port_cannot_honour(tpu, item):
+def test_trainer_refuses_what_the_port_cannot_honour(tpu, algo, item):
     """A config the port would otherwise run differently from what it asks
-    is refused: `tpu.sharded`, with the ROADMAP item that will port it, and
-    an update batch scale that does not divide the updates per step (128),
-    as the JAX trainer refuses it (trainer.py:252-255)."""
-    from deep_rl_grasping_tpu_torch.training.trainer import Trainer
-
+    is refused: `tpu.sharded` with an on-policy learner (the data-parallel
+    trainer shards the replay learners; the JAX package would train it on
+    one device), and an update batch scale that does not divide the
+    updates per step (128), as the JAX trainer refuses it
+    (trainer.py:252-255)."""
     with pytest.raises(ValueError, match=item):
-        Trainer(_flagship_config(**tpu), device="cpu")
+        train.make_trainer(_flagship_config(**tpu), algo, "cpu")
 
 
 def test_trainer_builds_the_flagship_config():
